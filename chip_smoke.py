@@ -1,0 +1,374 @@
+#!/usr/bin/env python3
+"""Smoke of the PyTorch/H100 port (``msfwsi_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each logged with a timestamp:
+
+1. device: the card's name, and its name and power limit as nvidia-smi
+   gives them;
+2. build: every kernel of ``msfwsi_tpu_torch/csrc`` compiled with nvcc;
+3. kernel: ``blur_or_sharpen_fused`` against its plain PyTorch version at
+   the main path's shapes, (32,224,224,3) and (32,1024,1024,3), in bf16 and
+   fp32 (and fp16 at 224), with all three selectors present; kernel and
+   plain times by CUDA events (median of 20) beside the bound;
+4. small: the view pipeline and one fp32 train step on the card against the
+   same inputs and weights on the CPU, at a small size, and the encoder's
+   features bf16 under autocast;
+5. slice: the fused SSL pretrain step (resnet18, b32, scale 4 so K=16,
+   224 px views from 1024 px uint8 tiles, bf16 amp) for 2 warm-up and 5
+   timed steps: finite loss, 4 kernel launches per step, tile views/s
+   (B*steps*(2+2K)/seconds) and peak memory; then 3 more steps traced by
+   ``torch.profiler``: ms/step, the device's busy share and the CUDA time
+   by kernel;
+6. the kernels JSON line, then the result line.
+
+Any failed phase ends the run with a non-zero exit and no result line. A
+watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
+the script exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# A hang must end in a traceback well before any outer time limit: the
+# whole run, build and profile included, takes about a minute on an H100.
+WATCHDOG_S = 240
+T0 = time.perf_counter()
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
+# fp32 outside the tensor cores (the kernel's sums are fp32 FMAs).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+MAIN_SHAPES = ((32, 224, 224, 3), (32, 1024, 1024, 3))
+TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
+
+
+def log(phase: str, msg: str) -> None:
+    stamp = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime())
+    print(f"[{stamp} +{time.perf_counter() - T0:7.1f}s] {phase}: {msg}", flush=True)
+
+
+def cuda_time_ms(fn, reps: int = 20) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after 2 warm-ups."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_bound_ms(img, sel) -> tuple[float, str]:
+    """Least time the card could take for one blur-or-sharpen launch on
+    these inputs: the image read once and written once (plus the per-sample
+    parameters) at the HBM rate, against the fp32 FMAs that this run's
+    selectors ask for (2x17 per element for a blurred sample, 9 for a
+    sharpened one) at the fp32 peak."""
+    N, H, W, C = img.shape
+    nbytes = 2 * img.numel() * img.element_size() + N * (17 + 9 + 1) * 4
+    per_sample = H * W * C
+    n_blur = int((sel == 1).sum())
+    n_sharp = int((sel == 2).sum())
+    flops = per_sample * (n_blur * 2 * 17 * 2 + n_sharp * 9 * 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_device():
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    log("device", f"{name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    return name, line
+
+
+def phase_build():
+    from msfwsi_tpu_torch import _build
+
+    t = time.perf_counter()
+    libs = _build.build_all()
+    secs = time.perf_counter() - t
+    log("build", f"{len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} in {secs:.2f} s: "
+        + ", ".join(p.name for p in libs.values()))
+    return secs
+
+
+def phase_kernel(dev, shapes=MAIN_SHAPES):
+    """Hold the kernel against its plain version; returns per-case rows."""
+    import torch
+
+    from msfwsi_tpu_torch.ops import augment as A
+    from msfwsi_tpu_torch.ops.cuda import colorops as K
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(s, torch.bfloat16) for s in shapes] + [(s, torch.float32) for s in shapes]
+    cases.append((shapes[0], torch.float16))
+    rows, failures = [], []
+    for shape, dt in cases:
+        N = shape[0]
+        img = torch.rand(shape, generator=gen, device=dev).to(dt)
+        taps = A.sample_blur_taps(gen, N, kmax=K.KMAX17)
+        sharp = A.sample_sharpen_kern(gen, N)
+        sel = (torch.arange(N, device=dev) % 3).to(torch.int32)  # all three ops
+        out = K.blur_or_sharpen_fused(img, taps, sharp, sel)
+        torch.cuda.synchronize()
+        ref = K.blur_or_sharpen_fused_ref(img, taps, sharp, sel)
+        torch.cuda.synchronize()
+        if out.shape != img.shape or out.dtype != img.dtype or not bool(out.isfinite().all()):
+            failures.append(f"{shape} {dt}: bad output {tuple(out.shape)} {out.dtype}")
+        err = float((out.float() - ref.float()).abs().max())
+        dtype = str(dt).replace("torch.", "")
+        tol = TOLERANCE[dtype]
+        ms = cuda_time_ms(lambda: K.blur_or_sharpen_fused(img, taps, sharp, sel))
+        plain_ms = cuda_time_ms(lambda: K.blur_or_sharpen_fused_ref(img, taps, sharp, sel))
+        bound_ms, bound_by = kernel_bound_ms(img, sel)
+        row = {"shape": list(shape), "dtype": dtype, "max_abs_err": err, "atol": tol,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        log("kernel", json.dumps(row))
+        if not err <= tol:
+            failures.append(f"{shape} {dtype}: max |kernel - plain| {err} > {tol}")
+        del img, out, ref
+    if failures:
+        raise AssertionError("blur_or_sharpen_fused disagrees with its plain version: "
+                             + "; ".join(failures))
+    return rows
+
+
+def _to(tree, dev):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return type(tree)(_to(v, dev) for v in tree)
+
+
+def phase_small(dev):
+    """The view pipeline and one fp32 train step on ``dev`` against the CPU,
+    on the same tiles, view parameters and weights (TF32 off: fp32 sums in
+    another order differ by ~1e-6 relative, so views are held to 1e-4 and
+    the loss to a relative 1e-3)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, make_ssl_views, sample_ssl_views
+    from msfwsi_tpu_torch.train.ssl import SSLConfig, create_ssl_state, ssl_train_step
+
+    config = SSLConfig(arch="resnet10", scale=2, batch_size=4, amp=False)
+    aug = AugConfig(img_size=32, grid=2, tile_px=32)
+    tiles = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 64, 64, 3), np.uint8))
+    params = sample_ssl_views(torch.Generator().manual_seed(1), 4, (64, 64), aug)
+    views = {d: make_ssl_views(tiles.to(d), aug, params=_to(params, d)) for d in ("cpu", dev)}
+    err = max(float((views[dev][k].cpu().float() - v.float()).abs().max())
+              for k, v in views["cpu"].items())
+    log("small", f"views on the card vs the CPU: max abs diff {err:.3g}")
+    if not err <= 1e-4:
+        raise AssertionError(f"views differ between the card and the CPU by {err}")
+
+    cpu_state = create_ssl_state(config, device="cpu")
+    dev_state = create_ssl_state(config, device=dev, model=copy.deepcopy(cpu_state.model))
+    batch = make_ssl_views(tiles, aug, params=params, shuffle_views=config.shuffle_views)
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss_cpu = float(ssl_train_step(cpu_state, batch, config.fuser_weights)["loss"])
+        loss_dev = float(ssl_train_step(dev_state, _to(batch, dev), config.fuser_weights)["loss"])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    log("small", f"fp32 train step loss: card {loss_dev:.8f}, cpu {loss_cpu:.8f}")
+    if not (math.isfinite(loss_dev) and math.isclose(loss_dev, loss_cpu, rel_tol=1e-3)):
+        raise AssertionError(f"train-step loss on the card {loss_dev} vs the CPU {loss_cpu}")
+    # under amp every activation stays bf16, as at dtype bf16 in JAX
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        feats = dev_state.model.context_encoder(batch["context1"].to(dev).bfloat16())
+    dtypes = sorted({str(f.dtype) for f in feats})
+    log("small", f"encoder features under autocast: {dtypes}")
+    if dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"encoder features under bf16 autocast are {dtypes}")
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the device kernel intervals (us)."""
+    busy, end = 0.0, -1.0
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def profile_steps(step, steps):
+    """Trace ``steps`` calls of ``step`` with torch.profiler and log the
+    wall time per step, the device's busy share (the union of kernel
+    intervals over the traced wall time) and the CUDA time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = step()
+        float(metrics["loss"])
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device events")
+    busy_s = _busy_us(kernels) * 1e-6
+    log("profile", f"{1e3 * wall_s / steps:.1f} ms/step over {steps} traced steps, device busy "
+        f"{100 * busy_s / wall_s:.1f}% ({1e3 * busy_s / steps:.1f} ms/step of kernels)")
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+        log("profile", f"{us / 1e3 / steps:9.3f} ms/step {100 * us / total:6.2f}%  {name[:110]}")
+
+
+def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, traced=3):
+    """The main path: ``make_fused_step`` at full width, then ``traced``
+    steps under the profiler. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, make_ssl_views
+    from msfwsi_tpu_torch.ops.cuda import colorops as K
+    from msfwsi_tpu_torch.train.ssl import SSLConfig, create_ssl_state, make_fused_step
+
+    config = SSLConfig(arch=arch, batch_size=batch, scale=scale, amp=True)
+    aug = AugConfig(grid=scale, compute_dtype="bfloat16")
+    src = scale * aug.tile_px
+    K_tiles = scale**2
+    rng = np.random.default_rng(config.seed)
+    tiles = torch.from_numpy(rng.integers(0, 256, (batch, src, src, 3), np.uint8)).to(dev)
+    state = create_ssl_state(config, device=dev)
+    step = make_fused_step(config, aug, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+
+    views = make_ssl_views(tiles, aug, gen, shuffle_views=config.shuffle_views)
+    want = {"context1": (batch, 224, 224, 3), "target1_spatial": (batch * K_tiles, 224, 224, 3),
+            "rev1": (batch, K_tiles)}
+    for k, shape in want.items():
+        v = views[k]
+        if tuple(v.shape) != shape or (v.is_floating_point() and not bool(v.isfinite().all())):
+            raise AssertionError(f"view {k}: shape {tuple(v.shape)} (want {shape}) or non-finite")
+    del views
+    log("slice", f"views ok: {', '.join(f'{k} {s}' for k, s in want.items())}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0  # every kernel count to 0 just before the main path
+    t_start = time.perf_counter()
+    for i in range(warmup):
+        loss = float(step(state, tiles, gen)["loss"])
+        log("slice", f"warm-up step {i + 1}: loss {loss:.6f}")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(state, tiles, gen)
+    loss = float(metrics["loss"])  # synchronizes
+    dt = time.perf_counter() - t0
+    launches = K.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    total = warmup + steps
+    views_per_s = batch * steps * (2 + 2 * K_tiles) / dt
+    log("slice", f"{steps} timed steps in {dt:.3f} s ({1e3 * dt / steps:.1f} ms/step, "
+        f"{total} steps {time.perf_counter() - t_start:.1f} s): loss {loss:.6f}, "
+        f"{views_per_s:.1f} tile views/s/device, peak memory {peak / 2**30:.2f} GiB, "
+        f"blur_or_sharpen_fused launches {launches}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    if launches != 4 * total:
+        raise AssertionError(f"{launches} kernel launches in {total} steps, want 4 per step")
+    profile_steps(lambda: step(state, tiles, gen), traced)
+    return {"launches": launches, "steps": total, "loss": loss, "views_per_s": views_per_s,
+            "step_ms": 1e3 * dt / steps, "peak_bytes": peak}
+
+
+def kernels_line(rows, slice_out):
+    """One entry per kernel. Times are for the kernel's work in one main-path
+    step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16."""
+    per_launch = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
+
+    def per_step(key):
+        return sum(2 * per_launch[s][key] for s in MAIN_SHAPES)
+
+    t_bytes_dominates = all(per_launch[s]["bound_by"] == "bytes" for s in MAIN_SHAPES)
+    err = max(per_launch[s]["max_abs_err"] for s in MAIN_SHAPES)
+    return {"kernels": [{
+        "name": "blur_or_sharpen_fused",
+        "route": "cuda",
+        "source": "msfwsi_tpu_torch/csrc/colorops.cu",
+        "replaces": "msfwsi_tpu/ops/pallas/colorops.py:104",
+        "launches": slice_out["launches"],
+        "launches_per_step": slice_out["launches"] // slice_out["steps"],
+        "max_abs_err": err,
+        "max_abs_diff": err,
+        "ms": per_step("ms"),
+        "kernel_ms": per_step("ms"),
+        "plain_ms": per_step("plain_ms"),
+        "bound_ms": per_step("bound_ms"),
+        "bound_by": "bytes" if t_bytes_dominates else "operations",
+        "library_ms": None,  # no single PyTorch call selects blur/sharpen/none per sample
+        "checks": rows,
+    }]}
+
+
+def main() -> int:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import msfwsi_tpu_torch  # noqa: F401  (fails here, before any output, outside a checkout)
+
+    dev = torch.device("cuda", 0)
+    name, smi_line = phase_device()
+    phase_build()
+    rows = phase_kernel(dev)
+    phase_small(dev)
+    slice_out = phase_slice(dev)
+    print(json.dumps(kernels_line(rows, slice_out)), flush=True)
+    log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
