@@ -11,7 +11,9 @@ Phases, each logged with a timestamp:
 3. kernel: ``blur_or_sharpen_fused`` against its plain PyTorch version at
    the main path's shapes, (32,224,224,3) and (32,1024,1024,3), in bf16 and
    fp32 (and fp16 at 224), with all three selectors present; kernel and
-   plain times by CUDA events (median of 20) beside the bound;
+   plain times by CUDA events (median of 20, the device's time: a spin
+   kernel hides the host's launch latency) beside the bound, and the
+   kernel's time per call as a caller sees it, host included (``host_ms``);
 4. small: the view pipeline and one fp32 train step on the card against the
    same inputs and weights on the CPU, at a small size, and the encoder's
    features bf16 under autocast;
@@ -21,7 +23,18 @@ Phases, each logged with a timestamp:
    (B*steps*(2+2K)/seconds) and peak memory; then 3 more steps traced by
    ``torch.profiler``: ms/step, the device's busy share and the CUDA time
    by kernel;
-6. the kernels JSON line, then the result line.
+6. blur: the standalone 23-tap blur kernel against its plain version at
+   (32,224,224,3) and (32,1024,1024,3) in fp32 and bf16 (and fp16 at 224),
+   each batch holding all three drawn kernel sizes; kernel, plain and cuDNN
+   (reflect pad + two depthwise convolutions) times, L2 cold, beside the
+   bound, and the kernel's ``host_ms``; then the path, ``gaussian_blur(..., use_kernel=True)`` on the
+   slice's (32,1024,1024,3) tiles as fp32: one launch, finite output in
+   [0, 1], equal to the plain version on the same taps;
+7. probe: the layout probe entry point once per probe (P1, P2, P3), each
+   case's kernel equal to its plain version bit for bit, then the 20 cases
+   timed (kernel, plain, one PyTorch expression, the kernel's ``host_ms``)
+   beside the bound;
+8. the kernels JSON line, then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -34,7 +47,6 @@ import faulthandler
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -43,11 +55,6 @@ import time
 # whole run, build and profile included, takes about a minute on an H100.
 WATCHDOG_S = 240
 T0 = time.perf_counter()
-
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
-# fp32 outside the tensor cores (the kernel's sums are fp32 FMAs).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 
 MAIN_SHAPES = ((32, 224, 224, 3), (32, 1024, 1024, 3))
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
@@ -58,38 +65,21 @@ def log(phase: str, msg: str) -> None:
     print(f"[{stamp} +{time.perf_counter() - T0:7.1f}s] {phase}: {msg}", flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after 2 warm-ups."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def kernel_bound_ms(img, sel) -> tuple[float, str]:
     """Least time the card could take for one blur-or-sharpen launch on
     these inputs: the image read once and written once (plus the per-sample
     parameters) at the HBM rate, against the fp32 FMAs that this run's
     selectors ask for (2x17 per element for a blurred sample, 9 for a
     sharpened one) at the fp32 peak."""
+    from msfwsi_tpu_torch.diag.timing import bound_ms
+
     N, H, W, C = img.shape
     nbytes = 2 * img.numel() * img.element_size() + N * (17 + 9 + 1) * 4
     per_sample = H * W * C
     n_blur = int((sel == 1).sum())
     n_sharp = int((sel == 2).sum())
     flops = per_sample * (n_blur * 2 * 17 * 2 + n_sharp * 9 * 2)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, flops)
 
 
 def phase_device():
@@ -122,6 +112,7 @@ def phase_kernel(dev, shapes=MAIN_SHAPES):
     """Hold the kernel against its plain version; returns per-case rows."""
     import torch
 
+    from msfwsi_tpu_torch.diag.timing import cuda_time_ms, host_time_ms
     from msfwsi_tpu_torch.ops import augment as A
     from msfwsi_tpu_torch.ops.cuda import colorops as K
 
@@ -146,9 +137,11 @@ def phase_kernel(dev, shapes=MAIN_SHAPES):
         tol = TOLERANCE[dtype]
         ms = cuda_time_ms(lambda: K.blur_or_sharpen_fused(img, taps, sharp, sel))
         plain_ms = cuda_time_ms(lambda: K.blur_or_sharpen_fused_ref(img, taps, sharp, sel))
+        host_ms = host_time_ms(lambda: K.blur_or_sharpen_fused(img, taps, sharp, sel))
         bound_ms, bound_by = kernel_bound_ms(img, sel)
         row = {"shape": list(shape), "dtype": dtype, "max_abs_err": err, "atol": tol,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+               "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
         rows.append(row)
         log("kernel", json.dumps(row))
         if not err <= tol:
@@ -317,9 +310,138 @@ def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, trac
             "step_ms": 1e3 * dt / steps, "peak_bytes": peak}
 
 
-def kernels_line(rows, slice_out):
-    """One entry per kernel. Times are for the kernel's work in one main-path
-    step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16."""
+def blur_bound_ms(img, kern, ksize) -> tuple[float, str]:
+    """Least time the card could take for one standalone blur: the image
+    read once and written once (plus the taps) at the HBM rate, against 2
+    fp32 FMAs per element per drawn tap (one per pass; ``ksize`` (N,) of
+    19, 21 or 23) at the fp32 peak."""
+    from msfwsi_tpu_torch.diag.timing import bound_ms
+
+    N, H, W, C = img.shape
+    nbytes = 2 * img.numel() * img.element_size() + kern.numel() * 4
+    flops = H * W * C * 2 * 2 * int(ksize.sum())
+    return bound_ms(nbytes, flops)
+
+
+def cudnn_blur(img, w):
+    """The yardstick: the same blur as PyTorch's convolutions compute it
+    (cuDNN, or PyTorch's own depthwise kernel where it dispatches there), on
+    the NCHW copy ``img`` (1, N*3, H, W) with each channel's taps ``w``
+    (N*3, 23): a reflect pad (PyTorch's "reflect" is reflect-101) and two
+    depthwise convolutions, three calls."""
+    import torch.nn.functional as F
+
+    NC = img.shape[1]
+    x = F.pad(img, (11, 11, 11, 11), mode="reflect")
+    x = F.conv2d(x, w.view(NC, 1, 23, 1), groups=NC)
+    return F.conv2d(x, w.view(NC, 1, 1, 23), groups=NC)
+
+
+def phase_blur(dev, shapes=MAIN_SHAPES):
+    """Hold the standalone blur kernel against its plain version, then drive
+    the op on the slice's tiles. Returns (per-case rows, path numbers)."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.diag.timing import cuda_time_ms, host_time_ms
+    from msfwsi_tpu_torch.ops import augment as A
+    from msfwsi_tpu_torch.ops.cuda import blur as K
+    from msfwsi_tpu_torch.train.ssl import SSLConfig
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(s, dt) for s in shapes for dt in (torch.float32, torch.bfloat16)]
+    cases.append((shapes[0], torch.float16))
+    rows, failures = [], []
+    for shape, dt in cases:
+        N, H, W, _ = shape
+        img = torch.rand(shape, generator=gen, device=dev).to(dt)
+        ksize = 19 + 2 * (torch.arange(N, device=dev) % 3)  # all three drawn sizes
+        sigma = torch.rand(N, generator=gen, device=dev) * 1.9 + 0.1
+        taps = A.blur_taps_from_draws(ksize, sigma, K.KMAX)
+        out = K.separable_blur_nhwc(img, taps)
+        ref = K.separable_blur_nhwc_ref(img, taps)
+        nchw = img.permute(0, 3, 1, 2).reshape(1, N * 3, H, W).contiguous()
+        w = taps.repeat_interleave(3, 0).to(dt)
+        lib = cudnn_blur(nchw, w).view(N, 3, H, W).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        if out.shape != img.shape or out.dtype != img.dtype or not bool(out.isfinite().all()):
+            failures.append(f"{shape} {dt}: bad output {tuple(out.shape)} {out.dtype}")
+        err = float((out.float() - ref.float()).abs().max())
+        dtype = str(dt).replace("torch.", "")
+        tol = TOLERANCE[dtype]
+        bound_ms, bound_by = blur_bound_ms(img, taps, ksize)
+        row = {"shape": list(shape), "dtype": dtype, "max_abs_err": err, "atol": tol,
+               "library_max_abs_diff": float((lib.float() - ref.float()).abs().max()),
+               "ms": cuda_time_ms(lambda: K.separable_blur_nhwc(img, taps), cold_l2=True),
+               "host_ms": host_time_ms(lambda: K.separable_blur_nhwc(img, taps)),
+               "plain_ms": cuda_time_ms(lambda: K.separable_blur_nhwc_ref(img, taps),
+                                        cold_l2=True),
+               "library_ms": cuda_time_ms(lambda: cudnn_blur(nchw, w), cold_l2=True),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        log("blur", json.dumps(row))
+        if not err <= tol:
+            failures.append(f"{shape} {dtype}: max |kernel - plain| {err} > {tol}")
+        del img, out, ref, nchw, lib
+    if failures:
+        raise AssertionError("separable_blur_nhwc disagrees with its plain version: "
+                             + "; ".join(failures))
+
+    # The path: the op on the slice's 1024 px uint8 tiles, as fp32 in [0, 1].
+    shape = shapes[-1]
+    rng = np.random.default_rng(SSLConfig().seed)
+    tiles = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+    x = tiles.float() / 255
+    gen = torch.Generator(device=dev).manual_seed(SSLConfig().seed)
+    replay = torch.Generator(device=dev)
+    replay.set_state(gen.get_state())
+    torch.cuda.synchronize()
+    K.LAUNCHES = 0  # the count to 0 just before the path
+    out = A.gaussian_blur(gen, x, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES
+    ref = K.separable_blur_nhwc_ref(x, A.sample_blur_taps(replay, shape[0], kmax=K.KMAX))
+    err = float((out - ref).abs().max())
+    lo, hi = float(out.min()), float(out.max())
+    log("blur", f"gaussian_blur(use_kernel=True) on {shape} fp32 tiles: {launches} launch(es), "
+        f"output in [{lo:.6f}, {hi:.6f}], max |out - plain| {err:.3g}")
+    if launches != 1:
+        raise AssertionError(f"gaussian_blur launched the kernel {launches} times, want 1")
+    if not (bool(out.isfinite().all()) and 0.0 <= lo and hi <= 1.0 and err <= TOLERANCE["float32"]):
+        raise AssertionError(f"gaussian_blur output: range [{lo}, {hi}], max |out - plain| {err}")
+    return rows, {"launches": launches, "shape": list(shape), "max_abs_err": err}
+
+
+def phase_probe(dev):
+    """The layout probe entry point once per probe, with the count at 0
+    before each; then every case timed. Returns (launches by probe, rows)."""
+    from msfwsi_tpu_torch.diag import layout_probe as P
+
+    launches = {}
+    for probe in ("P1", "P2", "P3"):
+        P.LAUNCHES = 0  # the count to 0 just before the path
+        rc = P.main(["--probe", probe])
+        launches[probe] = P.LAUNCHES
+        n_cases = sum(c.probe == probe for c in P.CASES)
+        log("probe", f"{probe}: exit {rc}, {launches[probe]} launches for {n_cases} cases")
+        if rc != 0 or launches[probe] != n_cases:
+            raise AssertionError(f"layout probe {probe}: exit {rc}, {launches[probe]} launches")
+    rows = P.run_probes(dev, timed=True)
+    for row in rows:
+        log("probe", json.dumps(row))
+    bad = [r["case"] for r in rows if not r["exact"]]
+    if bad or len(rows) != 20:
+        raise AssertionError(f"layout probe cases not exact: {bad} ({len(rows)} rows)")
+    return launches, rows
+
+
+def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows):
+    """One entry per kernel. K1's times are for its work in one main-path
+    step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16.
+    K2's are for one launch of its path, (32,1024,1024,3) fp32. A probe's
+    are the sums over its cases, one launch each. ``ms`` is the device's
+    time, ``host_ms`` the time a caller sees, the wrapper's host cost
+    included."""
     per_launch = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
 
     def per_step(key):
@@ -327,6 +449,26 @@ def kernels_line(rows, slice_out):
 
     t_bytes_dominates = all(per_launch[s]["bound_by"] == "bytes" for s in MAIN_SHAPES)
     err = max(per_launch[s]["max_abs_err"] for s in MAIN_SHAPES)
+    path = next(r for r in blur_rows
+                if r["shape"] == blur_path["shape"] and r["dtype"] == "float32")
+    probes = []
+    for probe, script in (("P1", "mosaic_probe.py:12"), ("P2", "mosaic_probe2.py:12"),
+                          ("P3", "mosaic_probe3.py:12")):
+        mine = [r for r in probe_rows if r["probe"] == probe]
+        total = {k: sum(r[k] for r in mine)
+                 for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
+        perr = max(r["max_abs_err"] for r in mine)
+        probes.append({
+            "name": f"layout_probe {probe}", "route": "cuda",
+            "source": "msfwsi_tpu_torch/csrc/layout_probe.cu",
+            "replaces": f"tools/diag/{script}",
+            "launches": probe_launches[probe], "launches_per_step": 0,
+            "max_abs_err": perr, "max_abs_diff": perr,
+            "ms": total["ms"], "kernel_ms": total["ms"], "host_ms": total["host_ms"],
+            "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": total["library_ms"], "checks": mine,
+        })
     return {"kernels": [{
         "name": "blur_or_sharpen_fused",
         "route": "cuda",
@@ -338,12 +480,30 @@ def kernels_line(rows, slice_out):
         "max_abs_diff": err,
         "ms": per_step("ms"),
         "kernel_ms": per_step("ms"),
+        "host_ms": per_step("host_ms"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": "bytes" if t_bytes_dominates else "operations",
         "library_ms": None,  # no single PyTorch call selects blur/sharpen/none per sample
         "checks": rows,
-    }]}
+    }, {
+        "name": "separable_blur_nhwc",
+        "route": "cuda",
+        "source": "msfwsi_tpu_torch/csrc/blur.cu",
+        "replaces": "msfwsi_tpu/ops/pallas/blur.py:89",
+        "launches": blur_path["launches"],
+        "launches_per_step": 0,
+        "max_abs_err": path["max_abs_err"],
+        "max_abs_diff": path["max_abs_err"],
+        "ms": path["ms"],
+        "kernel_ms": path["ms"],
+        "host_ms": path["host_ms"],
+        "plain_ms": path["plain_ms"],
+        "bound_ms": path["bound_ms"],
+        "bound_by": path["bound_by"],
+        "library_ms": path["library_ms"],  # F.pad(reflect) + 2 x depthwise F.conv2d
+        "checks": blur_rows,
+    }] + probes}
 
 
 def main() -> int:
@@ -362,7 +522,10 @@ def main() -> int:
     rows = phase_kernel(dev)
     phase_small(dev)
     slice_out = phase_slice(dev)
-    print(json.dumps(kernels_line(rows, slice_out)), flush=True)
+    blur_rows, blur_path = phase_blur(dev)
+    probe_launches, probe_rows = phase_probe(dev)
+    line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows)
+    print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

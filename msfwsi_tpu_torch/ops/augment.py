@@ -19,6 +19,7 @@ from typing import Sequence
 
 import torch
 
+from .cuda import blur as _blur
 from .cuda.colorops import HALF as _FUSED_HALF
 from .cuda.colorops import KMAX17, blur_or_sharpen_fused
 from .geometry import reflect_pad_hw
@@ -38,6 +39,7 @@ __all__ = [
     "sharpen_kern_from_draws",
     "sample_sharpen_kern",
     "apply_gaussian_blur",
+    "gaussian_blur",
     "apply_sharpen",
     "sample_blur_or_sharpen",
     "apply_blur_or_sharpen",
@@ -277,6 +279,25 @@ def apply_gaussian_blur(img, kern):
     for t in range(kmax):
         out = out + kern[:, t, None, None, None] * rows[:, :, t : t + W]
     return out
+
+
+def gaussian_blur(gen, img, blur_limit=_BLUR_LIMIT, sigma_limit=_SIGMA_LIMIT,
+                  use_kernel: bool = False):
+    """albu GaussianBlur: per sample a random odd kernel size in
+    ``blur_limit`` and sigma in ``sigma_limit``, separable taps at the tap
+    budget of the image's dtype. By default the shifted-FMA formulation
+    (:func:`apply_gaussian_blur`); ``use_kernel=True`` is the standalone
+    blur of ``ops/cuda/blur.py``, which takes only the 23-tap budget (so
+    not bf16 / fp16 images), C = 3 and 8-aligned H, W, and raises
+    ``ValueError`` otherwise."""
+    kmax = blur_kmax(img.dtype, blur_limit, sigma_limit)
+    taps = sample_blur_taps(gen, img.shape[0], blur_limit, sigma_limit, kmax=kmax)
+    if use_kernel:
+        if kmax != _blur.KMAX or not _blur.blur_supported(img.shape):
+            raise ValueError("the standalone blur kernel requires a 23-tap budget and C=3, "
+                             "8-aligned H/W")
+        return _blur.separable_blur_nhwc(img.contiguous(), taps)
+    return apply_gaussian_blur(img, taps)
 
 
 def apply_sharpen(img, kern):

@@ -8,7 +8,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["batched_blockshaped", "invert_permutation", "unshuffle_features", "reflect_pad_hw"]
+__all__ = [
+    "batched_blockshaped",
+    "invert_permutation",
+    "unshuffle_features",
+    "reflect_index",
+    "reflect_pad_hw",
+]
 
 
 def batched_blockshaped(arr, nrows: int, ncols: int):
@@ -38,13 +44,17 @@ def unshuffle_features(feats, jigsaw_reverse_idx):
     return feats.gather(1, idx)
 
 
+def reflect_index(n: int, pad: int, device=None):
+    """Source index of each of the ``n + 2 * pad`` positions of an axis of
+    length ``n`` padded by REFLECT_101 (cv2's default border, numpy's
+    "reflect"); needs ``n > pad``."""
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
 def reflect_pad_hw(img, pad: int):
-    """REFLECT_101 padding (cv2's default border, numpy's "reflect") of an
-    NHWC tensor on H and W; needs H, W > ``pad``."""
+    """REFLECT_101 padding of an NHWC tensor on H and W; needs H, W > ``pad``."""
     _, H, W, _ = img.shape
-
-    def index(n):
-        i = torch.arange(-pad, n + pad, device=img.device).abs()
-        return torch.where(i > n - 1, 2 * (n - 1) - i, i)
-
-    return img.index_select(1, index(H)).index_select(2, index(W))
+    return img.index_select(1, reflect_index(H, pad, img.device)).index_select(
+        2, reflect_index(W, pad, img.device)
+    )

@@ -202,6 +202,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"
         "import msfwsi_tpu_torch, msfwsi_tpu_torch.ssl_train, msfwsi_tpu_torch.train.checkpoint\n"
+        "import msfwsi_tpu_torch.ops.cuda.blur, msfwsi_tpu_torch.diag.layout_probe\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
