@@ -14,6 +14,8 @@ Phases, each logged with a timestamp:
    plain times by CUDA events (median of 20, the device's time: a spin
    kernel hides the host's launch latency) beside the bound, and the
    kernel's time per call as a caller sees it, host included (``host_ms``);
+   then one more timed row at (32,1024,1024,3) bf16 with the SSL step's
+   mix of selectors (16 passthrough, 8 blur, 8 sharpen);
 4. small: the view pipeline and one fp32 train step on the card against the
    same inputs and weights on the CPU, at a small size, and the encoder's
    features bf16 under autocast;
@@ -34,7 +36,14 @@ Phases, each logged with a timestamp:
    case's kernel equal to its plain version bit for bit, then the 20 cases
    timed (kernel, plain, one PyTorch expression, the kernel's ``host_ms``)
    beside the bound;
-8. the kernels JSON line, then the result line.
+8. edges: both stencil kernels (K1, K2) against their plain versions at
+   edge shapes (K2 with strips of 1, 3 and 6 chunks): the minimum sizes,
+   N = 1, rows whose bytes are not a multiple of 16 and an input that does
+   not start on a 16-byte boundary (the element-wise path), border,
+   interior and ragged tiles and strips; each batch (or, for N < 3, each of three
+   runs) holds all three selectors / kernel sizes; passthrough samples
+   bit for bit;
+9. the kernels JSON line, then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -57,6 +66,10 @@ WATCHDOG_S = 240
 T0 = time.perf_counter()
 
 MAIN_SHAPES = ((32, 224, 224, 3), (32, 1024, 1024, 3))
+EDGE_SHAPES = {
+    "blur_or_sharpen_fused": ((1, 16, 16, 3), (3, 17, 23, 3), (3, 40, 72, 3), (2, 1000, 1016, 3)),
+    "separable_blur_nhwc": ((1, 12, 12, 3), (2, 13, 29, 3), (3, 40, 72, 3), (2, 1000, 1016, 3)),
+}
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
 
 
@@ -147,6 +160,27 @@ def phase_kernel(dev, shapes=MAIN_SHAPES):
         if not err <= tol:
             failures.append(f"{shape} {dtype}: max |kernel - plain| {err} > {tol}")
         del img, out, ref
+    # The SSL step's own mix: apply with p = 0.5, then blur or sharpen 50/50.
+    shape, N = shapes[-1], shapes[-1][0]
+    img = torch.rand(shape, generator=gen, device=dev).to(torch.bfloat16)
+    taps = A.sample_blur_taps(gen, N, kmax=K.KMAX17)
+    sharp = A.sample_sharpen_kern(gen, N)
+    mix = torch.tensor([0] * (N // 2) + [1] * (N // 4) + [2] * (N - N // 2 - N // 4))
+    sel = mix[torch.randperm(N, generator=torch.Generator().manual_seed(0))].to(dev, torch.int32)
+    err = float((K.blur_or_sharpen_fused(img, taps, sharp, sel).float()
+                 - K.blur_or_sharpen_fused_ref(img, taps, sharp, sel).float()).abs().max())
+    bound_ms, bound_by = kernel_bound_ms(img, sel)
+    row = {"shape": list(shape), "dtype": "bfloat16", "mix": "16 passthrough, 8 blur, 8 sharpen",
+           "max_abs_err": err, "atol": TOLERANCE["bfloat16"],
+           "ms": cuda_time_ms(lambda: K.blur_or_sharpen_fused(img, taps, sharp, sel)),
+           "host_ms": host_time_ms(lambda: K.blur_or_sharpen_fused(img, taps, sharp, sel)),
+           "plain_ms": cuda_time_ms(lambda: K.blur_or_sharpen_fused_ref(img, taps, sharp, sel)),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    rows.append(row)
+    log("kernel", json.dumps(row))
+    if not err <= TOLERANCE["bfloat16"]:
+        failures.append(f"{shape} bfloat16, step mix: max |kernel - plain| {err}")
+    del img
     if failures:
         raise AssertionError("blur_or_sharpen_fused disagrees with its plain version: "
                              + "; ".join(failures))
@@ -435,6 +469,90 @@ def phase_probe(dev):
     return launches, rows
 
 
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def phase_edges(dev):
+    """Both stencil kernels against their plain versions at the edge shapes
+    of ``EDGE_SHAPES``, launched through the wrappers' ``_launch`` with the
+    row path that ``launch_plan`` gives those tensors (and, for the blur,
+    strips of 1, 3 and 6 chunks, so strip borders fall inside small images
+    too). Op samples within the tolerance, passthrough samples bit for bit.
+    Returns the per-case rows."""
+    import torch
+
+    from msfwsi_tpu_torch.ops import augment as A
+    from msfwsi_tpu_torch.ops.cuda import blur as K2
+    from msfwsi_tpu_torch.ops.cuda import colorops as K1
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, failures = [], []
+    for name, shapes in EDGE_SHAPES.items():
+        fused = name == "blur_or_sharpen_fused"
+        dtypes = ((torch.bfloat16, torch.float16, torch.float32) if fused
+                  else (torch.float32, torch.bfloat16))
+        cases = [(s, dt, False) for s in shapes for dt in dtypes]
+        cases += [(shapes[2], dt, True) for dt in dtypes]  # input off a 16-byte boundary
+        for shape, dt, shifted in cases:
+            N = shape[0]
+            x = torch.rand(shape, generator=gen, device=dev).to(dt)
+            img = _misaligned(x) if shifted else x
+            dtype = str(dt).replace("torch.", "")
+            tol = TOLERANCE[dtype]
+            err, exact, vecs = 0.0, True, set()
+            for shift in range(1 if N >= 3 else 3):  # every selector / size meets every sample
+                pick = (torch.arange(N, device=dev) + shift) % 3
+                if fused:
+                    taps = A.sample_blur_taps(gen, N, kmax=K1.KMAX17)
+                    sel = pick.to(torch.int32)
+                    args = (img, taps, A.sample_sharpen_kern(gen, N), sel)
+                    ref = K1.blur_or_sharpen_fused_ref(*args)
+                    plans = [None]
+                else:
+                    sigma = torch.rand(N, generator=gen, device=dev) * 1.9 + 0.1
+                    args = (img, A.blur_taps_from_draws(19 + 2 * pick, sigma, K2.KMAX))
+                    ref = K2.separable_blur_nhwc_ref(*args)
+                    plans = [1, K2.FEW_CHUNKS, K2.STRIP_CHUNKS]
+                for chunks in plans:
+                    out = torch.empty_like(x)
+                    if fused:
+                        vec = K1.launch_plan(shape, x.element_size(), img.data_ptr(),
+                                             out.data_ptr())
+                        K1._launch(*args, out, vec)
+                        keep = sel == 0
+                        exact &= bool(torch.equal(out[keep], img[keep]))
+                        done = ~keep
+                    else:
+                        _, vec = K2.launch_plan(shape, x.element_size(), img.data_ptr(),
+                                                out.data_ptr(), sms=sms)
+                        K2._launch(*args, out, (chunks, vec))
+                        done = torch.ones(N, dtype=torch.bool, device=dev)
+                    vecs.add(vec)
+                    torch.cuda.synchronize()
+                    if done.any():
+                        err = max(err, float((out[done].float() - ref[done].float()).abs().max()))
+            row = {"kernel": name, "shape": list(shape), "dtype": dtype, "aligned": not shifted,
+                   "vec": sorted(vecs), "max_abs_err": err, "atol": tol,
+                   "passthrough_exact": exact}
+            rows.append(row)
+            log("edges", json.dumps(row))
+            if not (err <= tol and exact):
+                failures.append(f"{name} {shape} {dtype} aligned={not shifted}: max |kernel - "
+                                f"plain| {err} (atol {tol}), passthrough exact {exact}")
+    if failures:
+        raise AssertionError("stencil kernels disagree at edge shapes: " + "; ".join(failures))
+    return rows
+
+
 def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows):
     """One entry per kernel. K1's times are for its work in one main-path
     step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16.
@@ -442,7 +560,8 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
     are the sums over its cases, one launch each. ``ms`` is the device's
     time, ``host_ms`` the time a caller sees, the wrapper's host cost
     included."""
-    per_launch = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
+    per_launch = {tuple(r["shape"]): r for r in rows
+                  if r["dtype"] == "bfloat16" and "mix" not in r}
 
     def per_step(key):
         return sum(2 * per_launch[s][key] for s in MAIN_SHAPES)
@@ -524,6 +643,7 @@ def main() -> int:
     slice_out = phase_slice(dev)
     blur_rows, blur_path = phase_blur(dev)
     probe_launches, probe_rows = phase_probe(dev)
+    phase_edges(dev)
     line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows)
     print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")

@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel ``msfwsi_tpu/ops/pallas/blur.py``
 which makes a vertical pass, transposes H and W in device memory, makes a
 second vertical pass and transposes back. The kernel is ``csrc/blur.cu``;
 it makes both passes in one launch, and its note says what bounds it on an
-H100 and what the design does about that.
+H100 and what the design does about that. :func:`launch_plan` picks the
+height of the kernel's strips and its 16-byte row path.
 
 :func:`separable_blur_nhwc` picks by the device of the image: a CPU tensor
 goes through :func:`separable_blur_nhwc_ref`, a CUDA tensor launches the
@@ -20,8 +21,9 @@ import torch
 
 from ... import _build
 from ..geometry import reflect_index
+from . import stencil
 
-__all__ = ["KMAX", "HALF", "LAUNCHES", "blur_supported", "separable_blur_nhwc",
+__all__ = ["KMAX", "HALF", "LAUNCHES", "blur_supported", "launch_plan", "separable_blur_nhwc",
            "separable_blur_nhwc_ref"]
 
 KMAX = 23
@@ -80,6 +82,27 @@ def separable_blur_nhwc_ref(img, kern):
     return _pass(v.float(), kern, axis=2).to(img.dtype)
 
 
+# A block's strip: SW output pixels across (csrc/blur.cu), walked down in
+# chunks of KMAX rows; a launch makes strips of STRIP_CHUNKS chunks where
+# that still gives the card at least BLOCKS_PER_SM blocks per
+# multiprocessor, else of FEW_CHUNKS (a 224 px image has too few rows for
+# tall strips).
+SW = 80
+STRIP_CHUNKS, FEW_CHUNKS = 6, 3
+BLOCKS_PER_SM = 8
+
+
+def launch_plan(shape, itemsize: int, *ptrs: int, sms: int) -> tuple[int, int]:
+    """(chunks, vec) of the launch for an (N, H, W, 3) image of
+    ``itemsize``-byte elements at the addresses ``ptrs`` (input and output)
+    on a card of ``sms`` multiprocessors: the strip's height in chunks of
+    KMAX rows, and 1 for the 16-byte rows (``stencil.vector_rows``), else 0."""
+    N, H, W, _ = shape
+    blocks = N * -(-W // SW) * -(-H // (KMAX * STRIP_CHUNKS))
+    chunks = STRIP_CHUNKS if blocks >= BLOCKS_PER_SM * sms else FEW_CHUNKS
+    return chunks, int(stencil.vector_rows(W, itemsize, *ptrs))
+
+
 def separable_blur_nhwc(img, kern):
     """Blur (N, H, W, 3) images with per-sample 1-D taps, reflect-101.
 
@@ -89,24 +112,32 @@ def separable_blur_nhwc(img, kern):
         size must be zero.
     Returns the blurred images in the input dtype (fp32 sums).
     """
-    global LAUNCHES
     if img.device.type == "cpu":
         return separable_blur_nhwc_ref(img, kern)
     if img.device.type != "cuda":
         raise ValueError(f"no kernel for device {img.device}")
     _check(img, kern)
+    if img.shape[0] > 65535:
+        raise ValueError(f"batch {img.shape[0]} exceeds the kernel's grid limit of 65535")
+    out = torch.empty_like(img)
+    sms = torch.cuda.get_device_properties(img.device).multi_processor_count
+    plan = launch_plan(img.shape, img.element_size(), img.data_ptr(), out.data_ptr(), sms=sms)
+    return _launch(img, kern, out, plan)
+
+
+def _launch(img, kern, out, plan):
+    """Launch the kernel with ``plan`` = (chunks, vec) on checked CUDA
+    tensors; count the launch."""
+    global LAUNCHES
     N, H, W, _ = img.shape
-    if N > 65535:
-        raise ValueError(f"batch {N} exceeds the kernel's grid limit of 65535")
     lib = _build.load("blur")
     fn = lib.msfwsi_separable_blur_nhwc
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(img.data_ptr(), out.data_ptr(), kern.data_ptr(), N, H, W,
-                _DTYPE_CODES[img.dtype], stream)
+                _DTYPE_CODES[img.dtype], *plan, stream)
     if rc != 0:
         raise RuntimeError(f"separable_blur_nhwc: kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1

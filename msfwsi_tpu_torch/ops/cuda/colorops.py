@@ -5,6 +5,7 @@ Replaces the Pallas TPU kernel ``msfwsi_tpu/ops/pallas/colorops.py``
 kernel is ``csrc/colorops.cu``; its note says what bounds it on an H100
 (memory: one read and one write of the image) and how the design keeps the
 blur's intermediate and the reflect-101 halo out of device memory.
+:func:`launch_plan` picks the kernel's 16-byte row path.
 
 :func:`blur_or_sharpen_fused` picks by the device of the image: a CPU
 tensor goes through :func:`blur_or_sharpen_fused_ref`, a CUDA tensor
@@ -19,8 +20,10 @@ import torch
 
 from ... import _build
 from ..geometry import reflect_pad_hw
+from . import stencil
 
-__all__ = ["KMAX17", "HALF", "LAUNCHES", "blur_or_sharpen_fused", "blur_or_sharpen_fused_ref"]
+__all__ = ["KMAX17", "HALF", "LAUNCHES", "blur_or_sharpen_fused", "blur_or_sharpen_fused_ref",
+           "launch_plan"]
 
 KMAX17 = 17
 HALF = KMAX17 // 2
@@ -86,6 +89,13 @@ def blur_or_sharpen_fused_ref(img, blur_kern, sharp_kern, op_select):
     return out.to(img.dtype)
 
 
+def launch_plan(shape, itemsize: int, *ptrs: int) -> int:
+    """The kernel's ``vec`` argument for an (N, H, W, 3) image of
+    ``itemsize``-byte elements at the addresses ``ptrs`` (input and output):
+    1 for the 16-byte rows (``stencil.vector_rows``), else 0."""
+    return int(stencil.vector_rows(shape[2], itemsize, *ptrs))
+
+
 def blur_or_sharpen_fused(img, blur_kern, sharp_kern, op_select):
     """Apply per sample a 17-tap separable blur (``op_select == 1``), a 3x3
     clipped sharpen (``== 2``) or nothing (any other value).
@@ -96,24 +106,31 @@ def blur_or_sharpen_fused(img, blur_kern, sharp_kern, op_select):
       sharp_kern: (N, 3, 3) float32.
       op_select: (N,) int32.
     """
-    global LAUNCHES
     if img.device.type == "cpu":
         return blur_or_sharpen_fused_ref(img, blur_kern, sharp_kern, op_select)
     if img.device.type != "cuda":
         raise ValueError(f"no kernel for device {img.device}")
     _check(img, blur_kern, sharp_kern, op_select)
+    if img.shape[0] > 65535:
+        raise ValueError(f"batch {img.shape[0]} exceeds the kernel's grid limit of 65535")
+    out = torch.empty_like(img)
+    vec = launch_plan(img.shape, img.element_size(), img.data_ptr(), out.data_ptr())
+    return _launch(img, blur_kern, sharp_kern, op_select, out, vec)
+
+
+def _launch(img, blur_kern, sharp_kern, op_select, out, vec):
+    """Launch the kernel on checked CUDA tensors with the row path ``vec``;
+    count the launch."""
+    global LAUNCHES
     N, H, W, _ = img.shape
-    if N > 65535:
-        raise ValueError(f"batch {N} exceeds the kernel's grid limit of 65535")
     lib = _build.load("colorops")
     fn = lib.msfwsi_blur_or_sharpen_fused
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(img.data_ptr(), out.data_ptr(), blur_kern.data_ptr(), sharp_kern.data_ptr(),
-                op_select.data_ptr(), N, H, W, _DTYPE_CODES[img.dtype], stream)
+                op_select.data_ptr(), N, H, W, _DTYPE_CODES[img.dtype], vec, stream)
     if rc != 0:
         raise RuntimeError(f"blur_or_sharpen_fused: kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1

@@ -164,3 +164,76 @@ def test_sass_report_reads_cuobjdump_output():
     assert counts == {"_Z3fooPf": {"LDC": 1, "FFMA": 2, "LDS": 1}, "_Z3barv": {"EXIT": 1}}
     usage = resource_usage(" Function _Z3fooPf:\n  REG:32 STACK:0 SHARED:96 LOCAL:0\n")
     assert usage == {"_Z3fooPf": "REG:32 STACK:0 SHARED:96 LOCAL:0"}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_path_shape_takes_tall_strips_and_the_vector_rows(itemsize):
+    """On an H100's 132 multiprocessors the op's (32,1024,1024,3) images
+    take the 16-byte rows and strips of STRIP_CHUNKS chunks; 224 px images
+    take shorter strips, rows of 29 pixels the element path."""
+    plan = K.launch_plan((32, 1024, 1024, 3), itemsize, 0, 1 << 20, sms=132)
+    assert plan == (K.STRIP_CHUNKS, 1)
+    assert K.launch_plan((32, 224, 224, 3), itemsize, 0, 0, sms=132) == (K.FEW_CHUNKS, 1)
+    assert K.launch_plan((2, 13, 29, 3), itemsize, 0, 0, sms=132)[1] == 0
+
+
+@pytest.mark.parametrize(
+    "shape,sms,chunks",
+    [((32, 1024, 1024, 3), 132, 6), ((32, 1024, 1024, 3), 528, 3), ((4, 1024, 1024, 3), 132, 3),
+     ((32, 224, 224, 3), 132, 3), ((8, 12, 12, 3), 1, 6), ((7, 12, 12, 3), 1, 3), ((300, 224, 224, 3), 132, 6)],
+)
+def test_tall_strips_only_where_every_multiprocessor_keeps_eight_blocks(shape, sms, chunks):
+    """Strips of STRIP_CHUNKS chunks (SW pixels across, KMAX * chunks rows
+    down, ragged at the edges) where that gives at least 8 blocks per
+    multiprocessor of the card, else FEW_CHUNKS."""
+    assert K.launch_plan(shape, 4, 0, 0, sms=sms)[0] == chunks
+
+
+def test_strip_width_matches_the_kernel_source():
+    """The wrapper's strip is the one the kernel is built for, and a chunk
+    is one tap window of rows."""
+    import re
+
+    from msfwsi_tpu_torch import _build
+
+    text = _build.sources()["blur"].read_text()
+    assert int(re.search(r"constexpr int SW = (\d+);", text).group(1)) == K.SW
+    assert int(re.search(r"constexpr int KTAPS = (\d+);", text).group(1)) == K.KMAX
+
+
+def test_kernel_compare_loads_an_earlier_copy_beside_the_package(tmp_path):
+    """``kernel_compare --old`` imports an earlier copy of the package under
+    another name: its wrappers are its own modules, build into the copy's
+    own directory and, on CPU tensors, compute what the current ones do."""
+    import importlib
+    import shutil
+    import sys
+    from pathlib import Path
+
+    import msfwsi_tpu_torch
+    from msfwsi_tpu_torch.diag.kernel_compare import load_package
+    from msfwsi_tpu_torch.ops.cuda import colorops
+
+    src = Path(msfwsi_tpu_torch.__file__).parent
+    pkg = tmp_path / "msfwsi_tpu_torch"
+    shutil.copytree(src, pkg, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    name = "msfwsi_tpu_torch_earlier"
+    try:
+        load_package(pkg, name)
+        old_blur = importlib.import_module(f"{name}.ops.cuda.blur")
+        old_col = importlib.import_module(f"{name}.ops.cuda.colorops")
+        old_build = importlib.import_module(f"{name}._build")
+        assert old_blur is not K and old_col is not colorops
+        assert old_build.BUILD_DIR == pkg / "_build"
+        rng = np.random.default_rng(0)
+        img = torch.from_numpy(rng.random((3, 16, 16, 3), dtype=np.float32))
+        kern = torch.from_numpy(rng.random((3, K.KMAX), dtype=np.float32))
+        assert torch.equal(old_blur.separable_blur_nhwc(img, kern), K.separable_blur_nhwc(img, kern))
+        args = (img, kern[:, :colorops.KMAX17].contiguous(),
+                torch.from_numpy(rng.random((3, 3, 3), dtype=np.float32)),
+                torch.arange(3, dtype=torch.int32))
+        assert torch.equal(old_col.blur_or_sharpen_fused(*args), colorops.blur_or_sharpen_fused(*args))
+        assert old_blur.LAUNCHES == old_col.LAUNCHES == 0
+    finally:
+        for key in [k for k in sys.modules if k == name or k.startswith(name + ".")]:
+            del sys.modules[key]

@@ -119,3 +119,24 @@ def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="expected a ;"):
         _build.build_all()
     assert not list((tmp_path / "build").iterdir())
+
+
+def test_ssl_step_shapes_take_the_vector_rows():
+    """The SSL step's bf16 images (224 and 1024 px, aligned as PyTorch
+    allocates) take the 16-byte rows."""
+    for shape in [(32, 224, 224, 3), (32, 1024, 1024, 3)]:
+        assert K.launch_plan(shape, 2, 1 << 20, 2 << 20) == 1
+
+
+@pytest.mark.parametrize(
+    "W,itemsize,ptrs,want",
+    [(1024, 2, (0, 256), True), (224, 4, (16, 32), True), (23, 2, (0, 0), False),
+     (29, 4, (0, 0), False), (24, 2, (0, 0), True), (72, 2, (2, 0), False),
+     (72, 4, (0, 8), False)],
+)
+def test_vector_rows_needs_aligned_rows_and_pointers(W, itemsize, ptrs, want):
+    from msfwsi_tpu_torch.ops.cuda import stencil
+
+    assert stencil.vector_rows(W, itemsize, *ptrs) is want
+    assert K.launch_plan((2, 16, W, 3), itemsize, *ptrs) == int(want)
+
