@@ -34,8 +34,11 @@ Phases, each logged with a timestamp:
    [0, 1], equal to the plain version on the same taps;
 7. probe: the layout probe entry point once per probe (P1, P2, P3), each
    case's kernel equal to its plain version bit for bit, then the 20 cases
-   timed (kernel, plain, one PyTorch expression, the kernel's ``host_ms``)
-   beside the bound;
+   timed (kernel, plain, one PyTorch expression, each over copies of the
+   input rotated so that every call reads its own bytes from device memory,
+   and the kernel's ``host_ms``) beside the bound; and its max over every
+   pair of special values (signed zeros, subnormals, infinities, NaNs) bit
+   for bit against its element-wise rule;
 8. edges: both stencil kernels (K1, K2) against their plain versions at
    edge shapes (K2 with strips of 1, 3 and 6 chunks): the minimum sizes,
    N = 1, rows whose bytes are not a multiple of 16 and an input that does
@@ -466,7 +469,30 @@ def phase_probe(dev):
     bad = [r["case"] for r in rows if not r["exact"]]
     if bad or len(rows) != 20:
         raise AssertionError(f"layout probe cases not exact: {bad} ({len(rows)} rows)")
+    probe_max_special_values(dev, P)
     return launches, rows
+
+
+def probe_max_special_values(dev, P):
+    """The probe kernel's max over every pair of special bf16 values (signed
+    zeros, subnormals, infinities, NaNs with payloads), bit for bit against
+    its element-wise rule: isnan(a) ? a : isnan(b) ? b : a >= b ? a : b."""
+    import torch
+
+    special = [0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x0080, 0x3F80, 0xBF80, 0x3F81,
+               0x7F80, 0xFF80, 0x7FC0, 0xFFC1, 0x7F81]
+    pairs = [(a, b) for a in special for b in special]
+    pairs += [(0, 0)] * (-len(pairs) % 8)
+    bits = torch.tensor(pairs, dtype=torch.int32).T.contiguous().to(torch.int16)
+    a, b = (v.view(torch.bfloat16).to(dev) for v in bits)
+    n = a.numel() // 8
+    x = torch.cat((a, b)).view(1, 1, 2 * n, 8)
+    got = P.gather_op(x, "max", (1, 1, n, 8), P.Gather(), P.Gather(w=P.AxisMap(off=n)))
+    want = torch.where(a.isnan(), a, torch.where(b.isnan(), b, torch.where(a >= b, a, b)))
+    wrong = int((got.reshape(-1).view(torch.int16) != want.view(torch.int16)).sum())
+    log("probe", f"max over {len(special)}^2 pairs of special values: {wrong} differ from the rule")
+    if wrong:
+        raise AssertionError(f"probe kernel's max: {wrong} special-value pairs differ")
 
 
 def _misaligned(x):

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
 import sys
 from typing import Callable, NamedTuple
 
@@ -33,17 +34,24 @@ import numpy as np
 import torch
 
 from .. import _build, resolve_device
-from .timing import bound_ms, cuda_time_ms, host_time_ms
+from .timing import bound_ms, host_time_ms, rotating_time_ms, rotation_count
 
-__all__ = ["AxisMap", "Gather", "OPS", "LAUNCHES", "gather_op", "gather_op_ref",
+__all__ = ["AxisMap", "Gather", "OPS", "LAUNCHES", "PREPARED", "kernel_map", "prepare",
+           "gather_op", "gather_op_ref",
            "probe_inputs", "ProbeCase", "CASES", "run_probes", "main"]
 
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads it
 # to prove the probe went through the kernel).
 LAUNCHES = 0
+# Launches prepared (checked, their ctypes arguments built) so far: one per
+# distinct key of prepare().
+PREPARED = 0
 
 OPS = {"copy": 0, "max": 1, "negate_odd_w": 2, "keep_positive": 3}
 _VEC = 8  # bf16 channels per 16-byte vector of the kernel
+# csrc/layout_probe.cu: VPT vectors a thread, at most MAX_THREADS a block
+_VPT = 4
+_MAX_THREADS = 512
 
 
 class AxisMap(NamedTuple):
@@ -69,37 +77,72 @@ class Gather(NamedTuple):
     w: AxisMap = AxisMap()
 
 
+def kernel_map(m: AxisMap, n_out: int, n_in: int) -> tuple[int, int, int, int, int]:
+    """``m`` as the kernel computes it, ``(off, num, shift, mod, alt)``:
+    ``j = off + ((i * num) >> shift)``, less ``mod`` once if ``j >= mod``,
+    plus ``(i & 1) * alt``, with no division. That equals :meth:`AxisMap.index`
+    where ``off, num >= 0``, ``den`` is a power of two (``1 << shift``) and
+    ``off + (n_out - 1) * num // den < 2 * mod``; a ``ValueError`` otherwise."""
+    mod = m.mod or n_in
+    if m.off < 0 or m.num < 0 or mod < 1 or m.den < 1 or m.den & (m.den - 1):
+        raise ValueError(f"map {m}: the kernel takes off, num >= 0, mod >= 1 and den a "
+                         "power of two")
+    shift = m.den.bit_length() - 1
+    top = m.off + (max(n_out - 1, 0) * m.num >> shift)
+    if top >= 2 * mod or max(n_out - 1, 0) * m.num >= 2**31:
+        raise ValueError(f"map {m}: off + i*num/den reaches {top}, the kernel takes less "
+                         f"than 2*mod = {2 * mod}")
+    return m.off, m.num, shift, mod, m.alt
+
+
 class _CMap(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_int) for name in ("off", "num", "den", "mod", "alt")]
+    _fields_ = [(name, ctypes.c_int) for name in ("off", "num", "shift", "mod", "alt")]
 
 
 class _CGather(ctypes.Structure):
     _fields_ = [("h", _CMap), ("w", _CMap)]
 
 
-def _indices(x, out_shape, g: Gather):
-    _, Hin, Win, _ = x.shape
-    hi, wi = g.h.index(out_shape[1], Hin), g.w.index(out_shape[2], Win)
-    if hi.min() < 0 or hi.max() >= Hin or wi.min() < 0 or wi.max() >= Win:
-        raise ValueError(f"gather {g} reads outside the input's {Hin}x{Win}")
-    return hi, wi
+class _CLaunch(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_int) for name in
+                 ("op", "N", "Hin", "Win", "CinV", "Hout", "Wout", "cv_bits", "threads")]
+                + [("a", _CGather), ("b", _CGather)])
 
 
-def _check(x, op, out_shape, a, b):
+def _check_args(shape, dtype, contiguous, op, out_shape, a, b):
+    """Raise ``ValueError`` on anything the kernel does not take; the source
+    indices ``(h, w)`` of each gather otherwise."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; one of {sorted(OPS)}")
     if (b is None) != (op != "max"):
         raise ValueError("gather b is given for op 'max' and only for it")
-    if x.dim() != 4 or len(out_shape) != 4 or out_shape[0] != x.shape[0]:
-        raise ValueError(f"x {tuple(x.shape)} and out {tuple(out_shape)} must be NHWC, same N")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"x must be bfloat16, got {x.dtype}")
-    if out_shape[3] > x.shape[3] or x.shape[3] % _VEC or out_shape[3] % _VEC:
-        raise ValueError(f"channels {x.shape[3]} -> {out_shape[3]}: need multiples of {_VEC}, "
+    if len(shape) != 4 or len(out_shape) != 4 or out_shape[0] != shape[0]:
+        raise ValueError(f"x {shape} and out {out_shape} must be NHWC, same N")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"x must be bfloat16, got {dtype}")
+    if out_shape[3] > shape[3] or shape[3] % _VEC or out_shape[3] % _VEC:
+        raise ValueError(f"channels {shape[3]} -> {out_shape[3]}: need multiples of {_VEC}, "
                          "the output's no more than the input's")
-    if not x.is_contiguous():
+    cout_v = out_shape[3] // _VEC
+    if cout_v & (cout_v - 1):
+        raise ValueError(f"output channels {out_shape[3]}: the kernel takes {_VEC} times a "
+                         "power of two")
+    if not contiguous:
         raise ValueError("x must be contiguous")
-    return [_indices(x, out_shape, g) for g in ((a,) if b is None else (a, b))]
+    _, Hin, Win, _ = shape
+    maps = []
+    for g in (a,) if b is None else (a, b):
+        hi, wi = g.h.index(out_shape[1], Hin), g.w.index(out_shape[2], Win)
+        if hi.min() < 0 or hi.max() >= Hin or wi.min() < 0 or wi.max() >= Win:
+            raise ValueError(f"gather {g} reads outside the input's {Hin}x{Win}")
+        kernel_map(g.h, out_shape[1], Hin)
+        kernel_map(g.w, out_shape[2], Win)
+        maps.append((hi, wi))
+    return maps
+
+
+def _check(x, op, out_shape, a, b):
+    return _check_args(tuple(x.shape), x.dtype, x.is_contiguous(), op, tuple(out_shape), a, b)
 
 
 def gather_op_ref(x, op: str, out_shape, a: Gather, b: Gather | None = None):
@@ -120,39 +163,85 @@ def gather_op_ref(x, op: str, out_shape, a: Gather, b: Gather | None = None):
     return (va > 0).to(va.dtype) * va  # keep_positive
 
 
+def _ceil(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load("layout_probe").msfwsi_layout_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_CLaunch), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class _Launch:
+    """A checked launch of the kernel for one key of :func:`prepare`: the
+    output's shape and the C entry point's arguments but the pointers and
+    the stream (``params``), built once. A block covers one output row (or
+    a chunk of a long one) with just enough threads for it at 4 vectors
+    each."""
+
+    def __init__(self, shape, op, out_shape, a, b):
+        N, Hin, Win, Cin = shape
+        _, Hout, Wout, Cout = out_shape
+        row_vecs = Wout * Cout // _VEC
+        threads = min(_MAX_THREADS, _ceil(_ceil(row_vecs, _VPT), 32) * 32)
+        if _ceil(row_vecs, threads * _VPT) > 65535 or N * Hout * row_vecs >= 2**31:
+            raise ValueError("the kernel takes fewer than 2^31 vectors, rows of at most "
+                             f"65535 * {threads * _VPT}")
+
+        def cgather(g):
+            return _CGather(_CMap(*kernel_map(g.h, Hout, Hin)), _CMap(*kernel_map(g.w, Wout, Win)))
+
+        self.out_shape = tuple(out_shape)
+        self.params = _CLaunch(OPS[op], N, Hin, Win, Cin // _VEC, Hout, Wout,
+                               (Cout // _VEC).bit_length() - 1, threads,
+                               cgather(a), cgather(b or a))
+        self._params_ref = ctypes.byref(self.params)
+
+    def __call__(self, x):
+        global LAUNCHES
+        if x.data_ptr() % 16:
+            raise ValueError("the kernel takes a 16-byte aligned input")
+        device = x.get_device()
+        if device != torch.cuda.current_device():
+            with torch.cuda.device(device):
+                return self(x)
+        out = x.new_empty(self.out_shape)
+        # the current stream's handle as an int, without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(device)
+        rc = _entry()(x.data_ptr(), out.data_ptr(), self._params_ref, stream)
+        if rc != 0:
+            raise RuntimeError(f"layout probe kernel launch failed with CUDA error {rc}")
+        LAUNCHES += 1
+        return out
+
+
+@functools.lru_cache(maxsize=256)
+def prepare(shape, dtype, contiguous, op, out_shape, a, b=None) -> _Launch:
+    """The launch for an input of ``shape``, ``dtype`` and contiguity, checked
+    (``ValueError`` on what the kernel does not take) and its arguments
+    built once per key."""
+    global PREPARED
+    shape, out_shape = tuple(shape), tuple(out_shape)
+    _check_args(shape, dtype, contiguous, op, out_shape, a, b)
+    launch = _Launch(shape, op, out_shape, a, b)
+    PREPARED += 1
+    return launch
+
+
 def gather_op(x, op: str, out_shape, a: Gather, b: Gather | None = None):
     """``op`` over one or two gathers of the bf16 NHWC ``x`` (see
     ``csrc/layout_probe.cu``): a CPU tensor takes :func:`gather_op_ref`, a
-    CUDA tensor the kernel (or an error)."""
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return gather_op_ref(x, op, out_shape, a, b)
-    if x.device.type != "cuda":
+    CUDA tensor the kernel (or an error), through the launch
+    :func:`prepare` built for its key."""
+    launch = prepare(tuple(x.shape), x.dtype, x.is_contiguous(), op, tuple(out_shape), a, b)
+    if x.is_cuda:
+        return launch(x)
+    if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    _check(x, op, out_shape, a, b)
-    out_shape = tuple(out_shape)
-    if int(np.prod(out_shape)) // _VEC >= 2**31 or x.data_ptr() % 16:
-        raise ValueError("the kernel takes fewer than 2^31 vectors, 16-byte aligned")
-    lib = _build.load("layout_probe")
-    fn = lib.msfwsi_layout_probe
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
-                   + [ctypes.POINTER(_CGather)] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def cgather(g):
-        return _CGather(*(_CMap(m.off, m.num, m.den, m.mod or n, m.alt)
-                          for m, n in ((g.h, x.shape[1]), (g.w, x.shape[2]))))
-
-    ca, cb = cgather(a), cgather(b or a)
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), OPS[op], *x.shape, *out_shape[1:],
-                ctypes.byref(ca), ctypes.byref(cb), stream)
-    if rc != 0:
-        raise RuntimeError(f"layout probe kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
-    return out
+    return gather_op_ref(x, op, out_shape, a, b)
 
 
 def probe_inputs(device="cpu") -> dict[str, torch.Tensor]:
@@ -204,6 +293,19 @@ class ProbeCase:
         ]))
         return cells.size * x.shape[0] * self.out_shape[3] * x.element_size()
 
+    def bound_bytes(self, inputs) -> int:
+        """The bytes of the bound: the distinct input bytes read and the
+        output bytes written."""
+        x = self.source(inputs)
+        return self.read_bytes(inputs) + int(np.prod(self.out_shape)) * x.element_size()
+
+    def rotation(self, inputs) -> list[dict]:
+        """``inputs`` and copies of the case's input, enough for
+        :func:`~.timing.rotating_time_ms` to find none of them in the L2 cache."""
+        x = inputs[self.inp]
+        k = rotation_count(self.bound_bytes(inputs))
+        return [inputs] + [{self.inp: x.clone()} for _ in range(k - 1)]
+
 
 def _roll(v, shift: int, axis: int):
     """``jnp.roll`` (and ``pltpu.roll`` for a shift >= 0) as a concatenation:
@@ -214,7 +316,10 @@ def _roll(v, shift: int, axis: int):
 
 
 def _select_positive(v, int_dtype):
-    k = torch.where(v > 0, torch.tensor(3, dtype=int_dtype), torch.tensor(1, dtype=int_dtype))
+    def const(c):  # made on v's device: a CPU scalar tensor would cost a blocking copy
+        return torch.full((), c, dtype=int_dtype, device=v.device)
+
+    k = torch.where(v > 0, const(3), const(1))
     return (k == 3).to(torch.bfloat16) * v
 
 
@@ -333,8 +438,9 @@ def run_probes(device="cuda", probes=("P1", "P2", "P3"), timed: bool = False) ->
     and once through its plain version and its library expression; one row
     per case with the largest |kernel - reference| and whether the kernel
     equals both. With ``timed`` (on a card) the row adds kernel, plain and
-    library times (CUDA events, median of 20, L2 cache cold: the arrays
-    would fit in it), the kernel's time per call host included
+    library times (:func:`~.timing.rotating_time_ms` over copies of the
+    input, which would fit in the L2 cache: each call pays for its own
+    bytes from device memory), the kernel's time per call host included
     (``host_ms``) and the bound: the distinct input bytes read and the
     output bytes written, at the HBM rate."""
     dev = resolve_device(device)
@@ -351,13 +457,14 @@ def run_probes(device="cuda", probes=("P1", "P2", "P3"), timed: bool = False) ->
             row["exact"] = all(got.shape == r.shape and torch.equal(got, r) for r in refs)
             row["max_abs_err"] = 0.0 if row["exact"] else max(_max_abs(got, r) for r in refs)
             if timed:
-                nbytes = case.read_bytes(inputs) + got.numel() * got.element_size()
-                row["ms"] = cuda_time_ms(lambda: case.kernel(inputs), cold_l2=True)
+                sets = case.rotation(inputs)
+                row["ms"] = rotating_time_ms(case.kernel, sets)
                 row["host_ms"] = host_time_ms(lambda: case.kernel(inputs))
-                row["plain_ms"] = cuda_time_ms(lambda: case.plain(inputs), cold_l2=True)
-                row["library_ms"] = cuda_time_ms(lambda: case.library(inputs), cold_l2=True)
+                row["plain_ms"] = rotating_time_ms(case.plain, sets)
+                row["library_ms"] = rotating_time_ms(case.library, sets)
                 row["library_call"] = case.library_call
-                row["bound_ms"], row["bound_by"] = bound_ms(nbytes)
+                row["bound_ms"], row["bound_by"] = bound_ms(case.bound_bytes(inputs))
+                del sets
         except Exception as e:  # a probe reports each case, as the originals do
             row["exact"] = False
             row["error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:150]}"
