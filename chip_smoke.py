@@ -46,7 +46,23 @@ Phases, each logged with a timestamp:
    interior and ragged tiles and strips; each batch (or, for N < 3, each of three
    runs) holds all three selectors / kernel sizes; passthrough samples
    bit for bit;
-9. the kernels JSON line, then the result line.
+9. datapath: the port's tile decoder built with g++ (whether libjpeg and
+   libpng headers were found), 64 smooth 1024 px RGB PNG tiles written by
+   the port's own writer (rows cycling through filters 0-4) with a
+   BCSS-style ``data.csv``, decoded bit for bit equal to the written
+   arrays; the decode rate at the loader's thread count and the
+   host-to-device time of one batch; two loader epochs onto the card,
+   every device batch equal to its host batch;
+10. cli: ``ssl_train.main`` in-process (resnet18, b32, scale 4, amp, BCSS,
+   2 epochs of 2 steps, a checkpoint each epoch): finite epoch losses, both
+   checkpoints on disk, K1 4 launches a step; a resume from
+   ``checkpoint_0000.pth.tar`` whose model and Adam state equal the saved
+   ones; a run from a ``--packed-cache``; the CLI's tile views/s from PNG
+   and from the pack (from each epoch's first batch in hand) beside phase
+   "slice"'s, and the first batch's fill apart;
+11. bench: the port bench (``python -m msfwsi_tpu_torch.bench``) in mode
+   ``step`` for a few iterations;
+12. the kernels JSON line, then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -59,13 +75,15 @@ import faulthandler
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # A hang must end in a traceback well before any outer time limit: the
-# whole run, build and profile included, takes about a minute on an H100.
-WATCHDOG_S = 240
+# whole run, build and profile included, takes about two minutes on an H100.
+WATCHDOG_S = 480
 T0 = time.perf_counter()
 
 MAIN_SHAPES = ((32, 224, 224, 3), (32, 1024, 1024, 3))
@@ -579,9 +597,151 @@ def phase_edges(dev):
     return rows
 
 
-def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows):
+def phase_datapath(dev, tmp):
+    """The tile decoder, a written PNG dataset decoded bit for bit, the
+    decode rate, one batch's H2D time, and two loader epochs onto the card
+    against the same loader on the host. Returns (dataset root, numbers)."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch import native
+    from msfwsi_tpu_torch.data.loader import TileBatchLoader
+    from msfwsi_tpu_torch.diag import datapath as DP
+
+    t = time.perf_counter()
+    native.load_library()
+    out = {"build_s": time.perf_counter() - t, "libjpeg": native.has_jpeg(),
+           "libpng_header": native.header_found("png.h")}
+    log("datapath", f"decoder built with g++ in {out['build_s']:.2f} s: libjpeg found "
+        f"{out['libjpeg']}, png.h found {out['libpng_header']} (PNG is decoded on zlib)")
+    root = os.path.join(tmp, "data")
+    t = time.perf_counter()
+    tiles = DP.smooth_tiles(64, 1024, seed=0, device=dev)
+    files = DP.write_bcss_dataset(root, tiles)
+    paths = [os.path.join(root, f) for f in files]
+    ratio = sum(os.path.getsize(p) for p in paths) / tiles.nbytes
+    log("datapath", f"wrote {len(files)} PNG tiles (1024 px RGB, filters 0-4) and data.csv in "
+        f"{time.perf_counter() - t:.1f} s, {ratio:.3f} of the raw bytes")
+    decoded = native.decode_batch(paths, 1024, 1024, 3, DP.NUM_THREADS)
+    wrong = int((decoded != tiles).any(axis=(1, 2, 3)).sum())
+    log("datapath", f"decoded {len(paths)} tiles: {wrong} differ from the written arrays")
+    if wrong:
+        raise AssertionError(f"{wrong} decoded tiles differ from the written ones")
+    del decoded
+    out["decode_tiles_per_s"] = DP.decode_rate(paths, (1024, 1024, 3))
+    out["h2d_ms"] = DP.h2d_ms((32, 1024, 1024, 3), dev)
+    log("datapath", f"decode {out['decode_tiles_per_s']:.1f} tiles/s at {DP.NUM_THREADS} "
+        f"threads; H2D of a (32,1024,1024,3) uint8 batch {out['h2d_ms']:.3f} ms")
+
+    on_card = TileBatchLoader(root, files, 32, seed=0, device=dev)
+    on_host = TileBatchLoader(root, files, 32, seed=0, device="cpu")
+    n = 0
+    for epoch in range(2):
+        for got, want in zip(on_card.epoch(epoch), on_host.epoch(epoch), strict=True):
+            if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"epoch {epoch}: a device batch differs from its host batch")
+            n += 1
+    log("datapath", f"loader: {n} device batches over 2 epochs, each equal to its host batch")
+    if n != 2 * len(on_card):
+        raise AssertionError(f"loader gave {n} batches, want {2 * len(on_card)}")
+    return root, out
+
+
+def _state_equal(state, payload) -> bool:
+    """Whether a train state holds the model and Adam state of a saved
+    checkpoint payload, bit for bit."""
+    import torch
+
+    sd = state.model.state_dict()
+    model_ok = sd.keys() == {k.removeprefix("module.") for k in payload["state_dict"]} and all(
+        torch.equal(sd[k.removeprefix("module.")].cpu(), v.cpu())
+        for k, v in payload["state_dict"].items())
+    got, want = state.optimizer.state_dict()["state"], payload["optimizer"]["state"]
+    opt_ok = got.keys() == want.keys() and all(
+        got[i].keys() == want[i].keys() and all(torch.equal(got[i][k].cpu(), want[i][k].cpu())
+                                                for k in want[i])
+        for i in want)
+    return model_ok and opt_ok
+
+
+def phase_cli(dev, root, tmp, slice_views_per_s):
+    """The SSL CLI in-process on the datapath's tiles: train with
+    checkpoints, resume, train from a pack. K1's count is set to 0 before
+    each run and read after it. Returns its numbers."""
+    import torch
+
+    from msfwsi_tpu_torch import ssl_train
+    from msfwsi_tpu_torch.diag import datapath as DP
+    from msfwsi_tpu_torch.ops.cuda import colorops as K
+
+    logs = os.path.join(tmp, "logs")
+    out = {}
+    K.LAUNCHES = 0  # the count to 0 just before the path
+    res = ssl_train.main(DP.cli_argv(root, os.path.join(logs, "png"), extra=(
+        "--steps-per-epoch", "2", "--save-freq", "1")))
+    out["launches_png"] = K.LAUNCHES
+    losses = [e["loss"] for e in res["epochs"]]
+    steps = sum(e["steps"] for e in res["epochs"])
+    ckpts = [os.path.join(res["log_dir"], f"checkpoint_{e:04d}.pth.tar") for e in (0, 1)]
+    log("cli", f"PNG run: epoch losses {losses}, {steps} steps, K1 launches {K.LAUNCHES}, "
+        f"checkpoints {[os.path.basename(c) for c in ckpts if os.path.exists(c)]}")
+    if not (len(losses) == 2 and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"CLI epoch losses {losses}")
+    if not all(os.path.exists(c) for c in ckpts):
+        raise AssertionError(f"missing checkpoints among {ckpts}")
+    if K.LAUNCHES != 4 * steps:
+        raise AssertionError(f"{K.LAUNCHES} K1 launches in {steps} CLI steps, want 4 per step")
+    out["png_views_per_s"] = DP.cli_rate(res, 32)
+    out["png_fill_s"] = DP.cli_fill_s(res)
+    del res
+
+    resumed = ssl_train.main(DP.cli_argv(root, os.path.join(logs, "resume"), epochs=1, extra=(
+        "--resume", ckpts[0])))
+    saved = torch.load(ckpts[0], map_location="cpu", weights_only=True)
+    equal = resumed["start_epoch"] == 1 and _state_equal(resumed["state"], saved)
+    log("cli", f"resume from {os.path.basename(ckpts[0])}: start epoch {resumed['start_epoch']}, "
+        f"model and Adam state equal to the saved ones: {equal}")
+    if not equal:
+        raise AssertionError("the resumed state differs from the saved checkpoint")
+    del resumed, saved
+
+    K.LAUNCHES = 0
+    res = ssl_train.main(DP.cli_argv(root, os.path.join(logs, "pack"), extra=(
+        "--steps-per-epoch", "2", "--packed-cache", os.path.join(tmp, "pack"))))
+    out["launches_pack"] = K.LAUNCHES
+    losses = [e["loss"] for e in res["epochs"]]
+    steps = sum(e["steps"] for e in res["epochs"])
+    if not (len(losses) == 2 and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"CLI epoch losses from the pack {losses}")
+    if K.LAUNCHES != 4 * steps:
+        raise AssertionError(f"{K.LAUNCHES} K1 launches in {steps} packed CLI steps")
+    out["pack_views_per_s"] = DP.cli_rate(res, 32)
+    out["pack_fill_s"] = DP.cli_fill_s(res)
+    del res
+    log("cli", f"tile views/s: CLI from PNG {out['png_views_per_s']:.1f}, from the pack "
+        f"{out['pack_views_per_s']:.1f} (epoch 2, its 2 steps from the first batch in hand; "
+        f"that batch's fill {out['png_fill_s']:.3f} / {out['pack_fill_s']:.3f} s apart), "
+        f"phase slice {slice_views_per_s:.1f}")
+    return out
+
+
+def phase_bench(dev):
+    """The port bench in mode ``step`` for a few iterations."""
+    from msfwsi_tpu_torch import bench
+
+    knobs = {"BENCH_MODE": "step", "BENCH_ITERS": "3", "BENCH_WARMUP": "1", "BENCH_REPEATS": "2"}
+    res = bench.main(["--device", str(dev)], env={**os.environ, **knobs})
+    log("bench", f"{res['metric']}: median {res['value']:.1f}, windows {res['rates']}")
+    if not (math.isfinite(res["value"]) and res["value"] > 0):
+        raise AssertionError(f"bench value {res['value']}")
+    return res
+
+
+def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out):
     """One entry per kernel. K1's times are for its work in one main-path
-    step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16.
+    step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16;
+    ``launches`` is phase slice's count, ``launches_by_path`` adds the CLI's
+    runs.
     K2's are for one launch of its path, (32,1024,1024,3) fp32. A probe's
     are the sums over its cases, one launch each. ``ms`` is the device's
     time, ``host_ms`` the time a caller sees, the wrapper's host cost
@@ -620,6 +780,8 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
         "source": "msfwsi_tpu_torch/csrc/colorops.cu",
         "replaces": "msfwsi_tpu/ops/pallas/colorops.py:104",
         "launches": slice_out["launches"],
+        "launches_by_path": {"slice": slice_out["launches"], "cli_png": cli_out["launches_png"],
+                             "cli_pack": cli_out["launches_pack"]},
         "launches_per_step": slice_out["launches"] // slice_out["steps"],
         "max_abs_err": err,
         "max_abs_diff": err,
@@ -670,7 +832,15 @@ def main() -> int:
     blur_rows, blur_path = phase_blur(dev)
     probe_launches, probe_rows = phase_probe(dev)
     phase_edges(dev)
-    line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        root, _ = phase_datapath(dev, tmp)
+        cli_out = phase_cli(dev, root, tmp, slice_out["views_per_s"])
+        phase_bench(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows,
+                        cli_out)
     print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

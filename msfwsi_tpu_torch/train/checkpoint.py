@@ -1,4 +1,13 @@
-"""Weight conversion from the JAX package's MSFWSI variables to the port.
+"""Checkpoints of the port, and weight conversion from the JAX package.
+
+Native format: the reference's ``checkpoint_{epoch:04d}.pth.tar``
+(``ssl_train.py:375-387``), a ``torch.save`` of ``{epoch, arch, state_dict,
+optimizer, scaler}`` with the state dict under the DDP ``module.`` prefix
+and ``optimizer`` the Adam ``state_dict()``, so a resume restores weights,
+BatchNorm statistics, Adam's moments and its step. A ``.pth.tar`` that the
+JAX package wrote (``save_torch_file``) has no optimizer: it restores
+weights and BatchNorm statistics only. The JAX package's Orbax directories
+are not read; ``tools/export_torch.py`` converts them.
 
 :func:`jax_msfwsi_to_torch` takes the ``params`` and ``batch_stats`` of the
 JAX package's MSFWSI as nested dicts of numpy arrays and returns the port's
@@ -9,12 +18,103 @@ kernels (in, out) -> (out, in).
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
 import torch
 
-__all__ = ["jax_msfwsi_to_torch"]
+__all__ = ["jax_msfwsi_to_torch", "checkpoint_path", "save_checkpoint", "resolve_checkpoint_arg",
+           "latest_checkpoint", "load_torch_file", "restore_checkpoint"]
+
+
+def checkpoint_path(log_dir: str, epoch: int) -> str:
+    return os.path.join(log_dir, f"checkpoint_{epoch:04d}.pth.tar")
+
+
+def save_checkpoint(log_dir: str, state, epoch: int, arch: str) -> str:
+    """Write ``state`` after (0-based) ``epoch`` as the reference's
+    ``checkpoint_{epoch:04d}.pth.tar``, atomically (a temporary file, then
+    ``os.replace``). ``epoch`` in the payload counts the epochs done, as
+    the reference stores it; a resume takes its start epoch from the name."""
+    path = checkpoint_path(log_dir, epoch)
+    payload = {
+        "epoch": epoch + 1,
+        "arch": arch,
+        "state_dict": {f"module.{k}": v for k, v in state.model.state_dict().items()},
+        "optimizer": state.optimizer.state_dict(),
+        "scaler": None,  # bf16 autocast needs no GradScaler
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def resolve_checkpoint_arg(path: str) -> str | None:
+    """A user-supplied checkpoint path as found on disk: ``path`` itself if
+    it exists, else the Orbax directory a ``.pth.tar``/``.pth`` name stands
+    for in the JAX package's runs (which :func:`restore_checkpoint`
+    refuses, naming the converter), else None."""
+    if os.path.exists(path):
+        return path
+    for suffix in (".pth.tar", ".pth"):
+        if path.endswith(suffix) and os.path.isdir(path[: -len(suffix)]):
+            return path[: -len(suffix)]
+    return None
+
+
+def latest_checkpoint(ckpt_dir: str) -> str | None:
+    """The ``checkpoint_NNNN.pth.tar`` of ``ckpt_dir`` with the highest
+    epoch, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    # \d{4,}: {epoch:04d} widens past epoch 9999.
+    pat = re.compile(r"checkpoint_(\d{4,})\.pth\.tar$")
+    best = None
+    for name in os.listdir(ckpt_dir):
+        m = pat.match(name)
+        if m and (best is None or int(m.group(1)) > best[0]):
+            best = (int(m.group(1)), name)
+    return os.path.join(ckpt_dir, best[1]) if best else None
+
+
+def _load(path: str, map_location) -> dict:
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory: an Orbax checkpoint of the JAX package, which the port "
+            "does not read. Convert it to a .pth.tar with `python tools/export_torch.py "
+            f"--kind ssl --checkpoint {path} --out <file>.pth.tar` (with the run's --arch "
+            "and --scale)."
+        )
+    obj = torch.load(path, map_location=map_location, weights_only=True)
+    return obj if isinstance(obj, dict) else {"state_dict": obj}
+
+
+def load_torch_file(path: str, map_location="cpu") -> dict:
+    """The state dict of a torch checkpoint (its ``state_dict`` entry, or
+    the whole file if it is a bare state dict), on ``map_location``."""
+    obj = _load(path, map_location)
+    return obj.get("state_dict", obj)
+
+
+def restore_checkpoint(path: str, state, map_location) -> bool:
+    """Load a ``.pth.tar`` into ``state`` in place: the model's weights and
+    BatchNorm statistics (keys with or without ``module.``) and, when the
+    file has them, Adam's state and step. Returns whether the optimizer was
+    restored (False for a file the JAX package wrote)."""
+    obj = _load(path, map_location)
+    sd = obj.get("state_dict", obj)
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    state.model.load_state_dict(sd, strict=True)
+    opt = obj.get("optimizer")
+    if not opt:
+        return False
+    state.optimizer.load_state_dict(opt)
+    steps = [s["step"] for s in state.optimizer.state.values() if "step" in s]
+    state.step = int(steps[0]) if steps else 0
+    return True
+
 
 # Flax submodule name -> index in the reference's nn.Sequential heads.
 _HEAD_INDEX = {

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -30,6 +31,8 @@ __all__ = [
     "ssl_loss_fn",
     "ssl_train_step",
     "make_fused_step",
+    "view_seed",
+    "load_imagenet_encoders",
 ]
 
 
@@ -165,3 +168,26 @@ def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda"):
         return ssl_train_step(state, batch, fuser_weights, amp=config.amp)
 
     return step
+
+
+def view_seed(seed: int, epoch: int, it: int) -> int:
+    """Seed of the view generator for step ``it`` of ``epoch``: a function
+    of ``(seed, epoch, it)`` alone (``SeedSequence``), as the JAX CLI folds
+    ``epoch`` then ``it`` into its base key, so a resumed run draws the
+    views an uninterrupted one drew."""
+    ss = np.random.SeedSequence([seed & 0x7FFFFFFF, epoch, it])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def load_imagenet_encoders(state: SSLTrainState, torch_state_dict: dict,
+                           config: SSLConfig) -> SSLTrainState:
+    """Both encoders from a torchvision ImageNet ResNet state dict (``fc``
+    and ``num_batches_tracked`` left out), as the reference's
+    ``base_encoder(pretrained=True)`` (``backbone.py:58-63``). The heads
+    keep their init; the optimizer is rebuilt, with no state."""
+    enc = {k: v for k, v in torch_state_dict.items()
+           if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+    for encoder in (state.model.context_encoder, state.model.target_encoder):
+        encoder.load_state_dict(enc, strict=True)
+    state.optimizer = make_ssl_optimizer(state.model, config)
+    return state

@@ -154,12 +154,13 @@ def test_config_and_optimizer_groups():
             S.SSLConfig(**bad)
 
 
-def test_entry_points_need_a_gpu_or_an_explicit_cpu():
+def test_entry_points_need_a_gpu_or_an_explicit_cpu(tmp_path):
     """Without a card, the entry points refuse to run unless asked for the
     CPU: there is no silent fallback."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     from msfwsi_tpu_torch import ssl_train
+    from msfwsi_tpu_torch.data.loader import TileBatchLoader
     from msfwsi_tpu_torch.data.pipeline import AugConfig
 
     config = S.SSLConfig(arch="resnet10", scale=2, batch_size=2)
@@ -167,12 +168,16 @@ def test_entry_points_need_a_gpu_or_an_explicit_cpu():
         S.make_fused_step(config, AugConfig())
     with pytest.raises(RuntimeError):
         S.create_ssl_state(config)
-    argv = ["--synthetic", "2", "-b", "2", "--steps", "1", "-a", "resnet10", "--scale", "2",
-            "--tile-px", "32", "-i", "32"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TileBatchLoader("", ["a.png"], 1)
+    argv = ["--synthetic", "2", "-b", "2", "--epochs", "1", "--steps-per-epoch", "1",
+            "-a", "resnet10", "--scale", "2", "--tile-px", "32", "-i", "32",
+            "--log-dir", str(tmp_path / "run")]
     with pytest.raises(RuntimeError):
         ssl_train.main(argv)
     out = ssl_train.main(argv + ["--device", "cpu", "--amp"])
-    assert out["steps"] == 1 and np.isfinite(out["loss"])
+    (epoch,) = out["epochs"]
+    assert epoch["steps"] == 1 and np.isfinite(epoch["loss"])
 
 
 def _imports(path: Path):
@@ -203,6 +208,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "    sys.modules[name] = None\n"
         "import msfwsi_tpu_torch, msfwsi_tpu_torch.ssl_train, msfwsi_tpu_torch.train.checkpoint\n"
         "import msfwsi_tpu_torch.ops.cuda.blur, msfwsi_tpu_torch.diag.layout_probe\n"
+        "import msfwsi_tpu_torch.data.loader, msfwsi_tpu_torch.data.datasets\n"
+        "import msfwsi_tpu_torch.data.packed, msfwsi_tpu_torch.native\n"
+        "import msfwsi_tpu_torch.utils, msfwsi_tpu_torch.utils.imagenet, msfwsi_tpu_torch.bench\n"
+        "import msfwsi_tpu_torch.diag.datapath\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
