@@ -62,7 +62,25 @@ Phases, each logged with a timestamp:
    "slice"'s, and the first batch's fill apart;
 11. bench: the port bench (``python -m msfwsi_tpu_torch.bench``) in mode
    ``step`` for a few iterations;
-12. the kernels JSON line, then the result line.
+12. finetune: one fp32 fine-tuning step (resnet10, 64 px views, b4) on the
+   card against the same inputs, view parameters and weights on the CPU,
+   and the decoder's convolutions taking bf16 under autocast; then the
+   fused fine-tuning step at full width (resnet18 HookNet, b64, 256 px
+   context and target views from (64,1024,1024,3) uint8 tiles and
+   (64,1024,1024) masks in 6 classes, bf16 amp, Dice lam 1, Adam) for 2
+   warm-up and 5 timed steps: finite loss, no kernel launch (the seg views
+   draw no blur or sharpen), pairs/s (B*steps/seconds), ms/step and peak
+   memory; then 3 steps traced by ``torch.profiler``;
+13. ft_cli: ``ssl_finetune.main`` in-process on the datapath's tiles, which
+   gain grey mask PNGs and a validation slide of 16 tiles: from phase
+   "cli"'s ``checkpoint_0001.pth.tar``, the branch encoders equal the
+   checkpoint's bit for bit before any step; then resnet18, amp, b16, 2
+   epochs of 2 steps, a validation each epoch: finite losses, scores in
+   [0, 1], a ``best_ft_model.pth.tar`` equal to the model saved; a run with
+   ``--val-views device``; host and device views on one model scoring
+   alike; the CLI's pairs/s (from each epoch's first batch in hand, the
+   fill apart) beside phase "finetune"'s;
+14. the kernels JSON line, then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -302,6 +320,10 @@ def profile_steps(step, steps):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
+    mma_names = ("conv", "xmma", "gemm", "gemv", "cutlass", "cudnn")
+    mma = sum(us for name, us in by_name.items() if any(k in name.lower() for k in mma_names))
+    log("profile", f"convolution and matmul kernels (cuDNN, cuBLAS): {mma / 1e3 / steps:.3f} "
+        f"ms/step ({100 * mma / total:.2f}% of the kernels' time)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         log("profile", f"{us / 1e3 / steps:9.3f} ms/step {100 * us / total:6.2f}%  {name[:110]}")
 
@@ -693,6 +715,7 @@ def phase_cli(dev, root, tmp, slice_views_per_s):
         raise AssertionError(f"{K.LAUNCHES} K1 launches in {steps} CLI steps, want 4 per step")
     out["png_views_per_s"] = DP.cli_rate(res, 32)
     out["png_fill_s"] = DP.cli_fill_s(res)
+    out["ckpt_dir"] = res["log_dir"]
     del res
 
     resumed = ssl_train.main(DP.cli_argv(root, os.path.join(logs, "resume"), epochs=1, extra=(
@@ -737,7 +760,239 @@ def phase_bench(dev):
     return res
 
 
-def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out):
+def _reset_counts():
+    """Every kernel's launch count to 0."""
+    from msfwsi_tpu_torch.diag import layout_probe as P
+    from msfwsi_tpu_torch.ops.cuda import blur as K2
+    from msfwsi_tpu_torch.ops.cuda import colorops as K1
+
+    K1.LAUNCHES = K2.LAUNCHES = P.LAUNCHES = 0
+
+
+def _read_counts() -> dict:
+    from msfwsi_tpu_torch.diag import layout_probe as P
+    from msfwsi_tpu_torch.ops.cuda import blur as K2
+    from msfwsi_tpu_torch.ops.cuda import colorops as K1
+
+    return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, "probe": P.LAUNCHES}
+
+
+def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
+    """The fine-tuning step: a small fp32 step on the card against the CPU,
+    then the fused step at full width and under the profiler. Returns its
+    numbers."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, sample_seg_train_views
+    from msfwsi_tpu_torch.train import finetune as FT
+
+    # a small step, card against CPU (TF32 off)
+    config = FT.FinetuneConfig(arch="resnet10", batch_size=4, amp=False)
+    aug = AugConfig(seg_size=64)
+    rng = np.random.default_rng(2)
+    imgs = torch.from_numpy(rng.integers(0, 256, (4, 256, 256, 3), np.uint8))
+    masks = torch.from_numpy(rng.integers(0, config.num_classes, (4, 256, 256), np.uint8))
+    params = sample_seg_train_views(torch.Generator().manual_seed(2), 4, aug)
+    cpu_state = FT.create_finetune_state(config, device="cpu")
+    dev_state = FT.create_finetune_state(config, device=dev, model=copy.deepcopy(cpu_state.model))
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m_cpu = FT.make_fused_finetune_step(config, aug, "cpu")(cpu_state, imgs, masks,
+                                                               view_params=params)
+        m_dev = FT.make_fused_finetune_step(config, aug, dev)(dev_state, imgs, masks,
+                                                             view_params=_to(params, dev))
+        loss_cpu, loss_dev = float(m_cpu["loss"]), float(m_dev["loss"])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    moved = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        dev_state.model.state_dict().values(), cpu_state.model.state_dict().values()))
+    log("finetune", f"fp32 step, resnet10 b4 64 px: loss card {loss_dev:.8f}, cpu {loss_cpu:.8f}; "
+        f"weights and stats after it differ by at most {moved:.3g} "
+        f"(2 lr = {2 * config.init_lr:.3g})")
+    if not (math.isfinite(loss_dev) and math.isclose(loss_dev, loss_cpu, rel_tol=1e-3)):
+        raise AssertionError(f"fine-tuning loss on the card {loss_dev} vs the CPU {loss_cpu}")
+    if not moved <= 2 * config.init_lr + 1e-4:
+        raise AssertionError(f"weights after one step differ by {moved} between card and CPU")
+    # under amp every decoder convolution takes bf16, as at dtype bf16 in JAX
+    seen = []
+    model = dev_state.model
+    hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(str(args[0].dtype)))
+             for name, m in model.named_modules()
+             if ".decoder." in f".{name}." and isinstance(m, torch.nn.Conv2d)]
+    x = torch.zeros((2, 64, 64, 3), device=dev)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model(x, x)
+    for h in hooks:
+        h.remove()
+    log("finetune", f"decoder convolution inputs under autocast: {sorted(set(seen))}")
+    if sorted(set(seen)) != ["torch.bfloat16"]:
+        raise AssertionError(f"decoder convolutions under bf16 autocast take {sorted(set(seen))}")
+    del cpu_state, dev_state, model
+
+    # the main path at full width
+    config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True)
+    aug = AugConfig(compute_dtype="bfloat16")
+    rng = np.random.default_rng(config.seed)
+    src = 4 * aug.seg_size
+    imgs = torch.from_numpy(rng.integers(0, 256, (batch, src, src, 3), np.uint8)).to(dev)
+    masks = torch.from_numpy(rng.integers(0, config.num_classes, (batch, src, src),
+                                          np.uint8)).to(dev)
+    state = FT.create_finetune_state(config, device=dev)
+    step = FT.make_fused_finetune_step(config, aug, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    t_start = time.perf_counter()
+    for i in range(warmup):
+        loss = float(step(state, imgs, masks, gen)["loss"])
+        log("finetune", f"warm-up step {i + 1}: loss {loss:.6f}")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(state, imgs, masks, gen)
+    loss = float(metrics["loss"])  # synchronizes
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pairs_per_s = batch * steps / dt
+    log("finetune", f"{steps} timed steps in {dt:.3f} s ({1e3 * dt / steps:.1f} ms/step, "
+        f"{warmup + steps} steps {time.perf_counter() - t_start:.1f} s): loss {loss:.6f}, "
+        f"{pairs_per_s:.1f} pairs/s/device, peak memory {peak / 2**30:.2f} GiB, "
+        f"kernel launches {launches}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite fine-tuning loss {loss}")
+    if any(launches.values()):
+        raise AssertionError(f"the fine-tuning step launched kernels {launches}, want none")
+    profile_steps(lambda: step(state, imgs, masks, gen), traced)
+    return {"launches": launches, "steps": warmup + steps, "loss": loss,
+            "pairs_per_s": pairs_per_s, "step_ms": 1e3 * dt / steps, "peak_bytes": peak}
+
+
+def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
+    """The fine-tuning CLI in-process on the datapath's tiles, from phase
+    "cli"'s SSL checkpoint. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch import native, ssl_finetune
+    from msfwsi_tpu_torch.data import datasets as D
+    from msfwsi_tpu_torch.data.loader import load_slide_arrays
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, make_seg_val_views_host
+    from msfwsi_tpu_torch.diag import datapath as DP
+    from msfwsi_tpu_torch.models.hooknet import HookNet
+    from msfwsi_tpu_torch.train import checkpoint as C
+    from msfwsi_tpu_torch.train import evaluate as EV
+
+    files = sorted(f"tiles/{f}" for f in os.listdir(os.path.join(root, "tiles")))
+    tiles = native.decode_batch([os.path.join(root, f) for f in files], 1024, 1024, 3)
+    DP.write_bcss_masks(root, files, (tiles[..., 0] // 43).astype(np.uint8), n_val=16)
+    del tiles
+    groups = D.bcss_seg_val_slides(root)
+    n_train = len(D.bcss_seg_samples(root))
+    log("ft_cli", f"{len(files)} tiles gained grey mask PNGs (6 classes): {n_train} to train, "
+        f"validation slides {[(g.filename, len(g.samples)) for g in groups]}")
+    if not (n_train == 48 and len(groups) == 1 and len(groups[0].samples) == 16):
+        raise AssertionError("the fine-tuning dataset is not 48 train tiles and one slide of 16")
+    ckpt = os.path.join(ckpt_dir, "checkpoint_0001.pth.tar")
+    logs = os.path.join(tmp, "ft_logs")
+
+    def argv(name, *extra):
+        return ["-a", "resnet18", "-b", "16", "--amp", "--data-name", "bcss", "--train-data", root,
+                "--weights", ckpt, "--seed", "0", "-p", "1", "--device", str(dev), "--log-dir",
+                os.path.join(logs, name), *extra]
+
+    out = {}
+    res = ssl_finetune.main(argv("zero", "--epochs", "0"))
+    ssl_sd = {k.removeprefix("module."): v for k, v in C.load_torch_file(ckpt).items()}
+    equal = all(
+        torch.equal(v.cpu(), ssl_sd[f"{enc}.{k}"])
+        for branch, enc in (("context_branch", "context_encoder"),
+                            ("target_branch", "target_encoder"))
+        for k, v in getattr(res["state"].model, branch).encoder.state_dict().items())
+    log("ft_cli", f"--weights {os.path.basename(ckpt)}: both branch encoders equal the SSL "
+        f"checkpoint's before any step: {equal}")
+    if not equal:
+        raise AssertionError("the branch encoders differ from the SSL checkpoint's encoders")
+    del res
+
+    saved = {}
+    real_save = C.save_best_ft_model
+
+    def save_and_keep(log_dir, model, epoch, arch):
+        saved["sd"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        return real_save(log_dir, model, epoch, arch)
+
+    C.save_best_ft_model = save_and_keep
+    _reset_counts()  # every kernel count to 0 just before the path
+    try:
+        res = ssl_finetune.main(argv("host", "--epochs", "2", "--steps-per-epoch", "2"))
+    finally:
+        C.save_best_ft_model = real_save
+    out["launches"] = _read_counts()
+    epochs = res["epochs"]
+    scores = [{k: e[k] for k in ("val_f1", "val_iou", "val_acc")} for e in epochs]
+    log("ft_cli", f"host views: epoch losses {[e['loss'] for e in epochs]}, train F1 "
+        f"{[e['train_f1'] for e in epochs]}, val micro {scores}, kernel launches "
+        f"{out['launches']}")
+    if not (len(epochs) == 2 and all(math.isfinite(e["loss"]) and e["steps"] == 2
+                                     for e in epochs)):
+        raise AssertionError(f"fine-tuning CLI epochs {epochs}")
+    if not all(0.0 <= v <= 1.0 for sc in scores for v in sc.values()):
+        raise AssertionError(f"validation scores out of [0, 1]: {scores}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"the fine-tuning CLI launched kernels {out['launches']}")
+    best = os.path.join(res["log_dir"], C.BEST_FT_MODEL)
+    back = C.load_ft_model(best, HookNet(arch="resnet18", classes=6))
+    same = all(torch.equal(v, saved["sd"][k]) for k, v in back.state_dict().items())
+    log("ft_cli", f"{C.BEST_FT_MODEL} (best epoch "
+        f"{max(e['epoch'] for e in epochs if e['is_best'])}) loads back equal to the model "
+        f"saved: {same}")
+    if not same:
+        raise AssertionError("best_ft_model.pth.tar differs from the model saved")
+    rates = [16 * e["steps"] / (e["seconds"] - e["fill_seconds"]) for e in epochs]
+    fills = [e["fill_seconds"] for e in epochs]
+    out.update(pairs_per_s=rates, fill_s=fills, val_s=[e["val_seconds"] for e in epochs])
+
+    # one model, both kinds of evaluation views
+    model = res["state"].model
+    aug = AugConfig(seg_size=256, compute_dtype="bfloat16")
+    slide = load_slide_arrays(root, groups[0])
+    classes = ssl_finetune.CLASS_NAMES["bcss"]
+    by_views = {}
+    for views in ("host", "device"):
+        stats = EV.make_chunk_stats_for_views(model, len(classes), views, aug, amp=True)
+        item = make_seg_val_views_host(*slide, aug) if views == "host" else slide
+        by_views[views] = EV.validate_slides(stats, [item], views, classes, device=dev).summary()
+    diff = max(abs(by_views["host"][k] - by_views["device"][k]) for k in by_views["host"])
+    log("ft_cli", f"one model, host against device views: micro F1 "
+        f"{by_views['host']['f1_micro']:.6f} / {by_views['device']['f1_micro']:.6f}, largest "
+        f"score difference {diff:.3g} (the host rounds its resized context view to uint8)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"host and device evaluation views score {diff} apart")
+    del res, model
+
+    res = ssl_finetune.main(argv("device", "--epochs", "1", "--steps-per-epoch", "2",
+                                 "--val-views", "device"))
+    e = res["epochs"][0]
+    log("ft_cli", f"--val-views device: loss {e['loss']:.6f}, val micro F1/IoU/acc "
+        f"{e['val_f1']:.6f} / {e['val_iou']:.6f} / {e['val_acc']:.6f} (the host run's epoch 0: "
+        f"{scores[0]['val_f1']:.6f} / {scores[0]['val_iou']:.6f} / {scores[0]['val_acc']:.6f})")
+    if not (math.isfinite(e["loss"]) and all(0.0 <= e[k] <= 1.0
+                                             for k in ("val_f1", "val_iou", "val_acc"))):
+        raise AssertionError(f"--val-views device epoch {e}")
+    del res
+    log("ft_cli", f"pairs/s: CLI {', '.join(f'{r:.1f}' for r in rates)} by epoch (from its first "
+        f"batch in hand; that batch's fill {', '.join(f'{f:.3f}' for f in fills)} s apart), "
+        f"phase finetune {finetune_pairs_per_s:.1f}")
+    return out
+
+
+def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out,
+                 ft_out, ft_cli_out):
     """One entry per kernel. K1's times are for its work in one main-path
     step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16;
     ``launches`` is phase slice's count, ``launches_by_path`` adds the CLI's
@@ -751,6 +1006,9 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
 
     def per_step(key):
         return sum(2 * per_launch[s][key] for s in MAIN_SHAPES)
+
+    def finetune_paths(key):
+        return {"finetune": ft_out["launches"][key], "ft_cli": ft_cli_out["launches"][key]}
 
     t_bytes_dominates = all(per_launch[s]["bound_by"] == "bytes" for s in MAIN_SHAPES)
     err = max(per_launch[s]["max_abs_err"] for s in MAIN_SHAPES)
@@ -768,6 +1026,7 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
             "source": "msfwsi_tpu_torch/csrc/layout_probe.cu",
             "replaces": f"tools/diag/{script}",
             "launches": probe_launches[probe], "launches_per_step": 0,
+            "launches_by_path": {"probe": probe_launches[probe], **finetune_paths("probe")},
             "max_abs_err": perr, "max_abs_diff": perr,
             "ms": total["ms"], "kernel_ms": total["ms"], "host_ms": total["host_ms"],
             "plain_ms": total["plain_ms"],
@@ -781,7 +1040,7 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
         "replaces": "msfwsi_tpu/ops/pallas/colorops.py:104",
         "launches": slice_out["launches"],
         "launches_by_path": {"slice": slice_out["launches"], "cli_png": cli_out["launches_png"],
-                             "cli_pack": cli_out["launches_pack"]},
+                             "cli_pack": cli_out["launches_pack"], **finetune_paths("K1")},
         "launches_per_step": slice_out["launches"] // slice_out["steps"],
         "max_abs_err": err,
         "max_abs_diff": err,
@@ -800,6 +1059,7 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
         "replaces": "msfwsi_tpu/ops/pallas/blur.py:89",
         "launches": blur_path["launches"],
         "launches_per_step": 0,
+        "launches_by_path": {"blur": blur_path["launches"], **finetune_paths("K2")},
         "max_abs_err": path["max_abs_err"],
         "max_abs_diff": path["max_abs_err"],
         "ms": path["ms"],
@@ -837,10 +1097,12 @@ def main() -> int:
         root, _ = phase_datapath(dev, tmp)
         cli_out = phase_cli(dev, root, tmp, slice_out["views_per_s"])
         phase_bench(dev)
+        ft_out = phase_finetune(dev)
+        ft_cli_out = phase_ft_cli(dev, root, tmp, cli_out["ckpt_dir"], ft_out["pairs_per_s"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows,
-                        cli_out)
+                        cli_out, ft_out, ft_cli_out)
     print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

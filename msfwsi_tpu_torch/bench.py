@@ -1,27 +1,36 @@
-"""SSL pretrain throughput of the port (from ``bench.py``'s two SSL modes).
+"""Throughput of the port (from ``bench.py``'s SSL and HookNet modes).
 
     python -m msfwsi_tpu_torch.bench               # BENCH_MODE=pipeline
     BENCH_MODE=step python -m msfwsi_tpu_torch.bench
+    BENCH_MODE=hooknet BENCH_BATCH=64 python -m msfwsi_tpu_torch.bench
     python -m msfwsi_tpu_torch.bench --device cpu  # tiny sizes only
 
 Modes, as ``bench.py`` defines them:
   pipeline: raw uint8 (B, 1024, 1024, 3) tiles on the device -> on-device
-            views -> the train step (the fused step);
-  step:     the train step alone, on random-normal 224 px views.
+            views -> the SSL train step (the fused step);
+  step:     the SSL train step alone, on random-normal 224 px views;
+  hooknet:  the fused fine-tuning step: uint8 (B, 1024, 1024, 3) tiles and
+            (B, 1024, 1024) masks -> 256 px context/target views -> the
+            HookNet train step (Dice, Adam), bf16;
+  infer:    the per-slide validation chunk (``make_chunk_stats``): eval
+            forward of B = chunk random-normal 256 px view pairs, target
+            argmax and confusion counts kept on the device, bf16.
 
-Metric: 224 px tile views per second per device, B * iters * (2 + 2K) /
-seconds / devices (K = 16), timed over ``BENCH_ITERS`` steps after
-``BENCH_WARMUP`` and ended by a device sync (``float(loss)``), as in
-``bench.py:106-119``. The window is repeated ``BENCH_REPEATS`` times;
-earlier lines give each window's rate, their median and quartiles and the
-peak device memory, and the last line is ``bench.py``'s JSON with the
-median as its value (no ``vs_baseline``: that target was set for a TPU).
+Metrics: pipeline/step, 224 px tile views per second per device, B * iters
+* (2 + 2K) / seconds / devices (K = 16); hooknet, context/target pairs per
+second, B * iters / seconds; infer, tiles per second, chunk * iters /
+seconds. Each is timed over ``BENCH_ITERS`` steps after ``BENCH_WARMUP``
+and ended by a device sync, as in ``bench.py:106-119,205-290``. The window
+is repeated ``BENCH_REPEATS`` times; earlier lines give each window's rate,
+their median and quartiles and the peak device memory, and the last line is
+``bench.py``'s JSON with the median as its value (no ``vs_baseline``: that
+target was set for a TPU).
 
 Env knobs: BENCH_ARCH, BENCH_BATCH, BENCH_ITERS, BENCH_WARMUP,
 BENCH_REPEATS, BENCH_MODE, and those of ``bench.py`` the port raises on
 unless left at their defaults (BENCH_USE_AC, BENCH_ACCUM,
-BENCH_INTER_OPT, BENCH_INTER_DTYPE, BENCH_REMAT_STAGES). Modes
-``hooknet``, ``infer`` and ``eval_e2e`` are not ported yet.
+BENCH_INTER_OPT, BENCH_INTER_DTYPE, BENCH_REMAT_STAGES,
+BENCH_PACKED_TAIL). Mode ``eval_e2e`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,12 +47,15 @@ import torch
 
 from . import resolve_device
 from .data.pipeline import AugConfig, target_keys
+from .train import evaluate as EV
+from .train import finetune as FT
 from .train.ssl import SSLConfig, create_ssl_state, make_fused_step, ssl_train_step, view_seed
 
 __all__ = ["main"]
 
-IMG_SIZE = 224  # the views' size, as in bench.py; it names the metric
-_NOT_PORTED = {"hooknet": 4, "infer": 5, "eval_e2e": 5}
+IMG_SIZE = 224  # the SSL views' size, as in bench.py; it names the metric
+SEG_SIZE = 256  # the HookNet views' size, as in bench.py; it names the metric
+_NOT_PORTED = {"eval_e2e": 5}
 
 
 def _config(arch: str, batch: int, env) -> SSLConfig:
@@ -58,31 +70,11 @@ def _config(arch: str, batch: int, env) -> SSLConfig:
     )
 
 
-def main(argv=None, env=os.environ, img_size: int = IMG_SIZE) -> dict:
-    """Run the bench with the ``BENCH_*`` knobs of ``env``; returns the
-    last line's fields with each window's rate, the quartiles and the peak
-    memory. ``img_size`` is the views' size: bench.py's 224, smaller only
-    in CPU tests (the metric's name keeps 224px)."""
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
-    arch = env.get("BENCH_ARCH", "resnet18")
-    batch = int(env.get("BENCH_BATCH", "32"))
-    iters = int(env.get("BENCH_ITERS", "20"))
-    warmup = int(env.get("BENCH_WARMUP", "3"))
-    repeats = int(env.get("BENCH_REPEATS", "5"))
-    mode = env.get("BENCH_MODE", "pipeline")
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"BENCH_MODE={mode}: not ported yet, ROADMAP.md queue 1 "
-                                  f"item {_NOT_PORTED[mode]}")
-    if mode not in ("pipeline", "step"):
-        raise ValueError(f"unknown BENCH_MODE {mode!r}")
-    dev = resolve_device(args.device)
-
+def _ssl_mode(mode, arch, batch, env, dev, rng, img_size):
+    """(run(i) -> metrics, metric name, items per step) of an SSL mode."""
     config = _config(arch, batch, env)
     K = config.scale**2
     state = create_ssl_state(config, device=dev)
-    rng = np.random.default_rng(0)
     if mode == "pipeline":
         aug_cfg = AugConfig(img_size=img_size, grid=config.scale, compute_dtype="bfloat16")
         src = config.scale * aug_cfg.tile_px  # 1024 px source tiles
@@ -109,6 +101,81 @@ def main(argv=None, env=os.environ, img_size: int = IMG_SIZE) -> dict:
         def run(i):
             return ssl_train_step(state, views, config.fuser_weights, amp=config.amp)
 
+    metric = (f"ssl_pretrain_e2e_tile_views_per_sec_per_chip[{arch},b{batch},scale4,"
+              f"{IMG_SIZE}px,{mode}]")
+    return run, metric, batch * (2 + 2 * K), "tile views"
+
+
+def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
+    """(run(i) -> metrics, metric name, items per step) of a HookNet mode."""
+    if env.get("BENCH_PACKED_TAIL", "0") == "1":
+        raise ValueError("BENCH_PACKED_TAIL=1: the port computes the decoder unpacked (the "
+                         "packed tail is a TPU layout, exact with the same weights)")
+    config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True)
+    state = FT.create_finetune_state(config, device=dev)
+    if mode == "hooknet":
+        aug_cfg = AugConfig(seg_size=seg_size, compute_dtype="bfloat16")
+        src = 4 * seg_size  # 1024 px source tiles
+        imgs = torch.from_numpy(rng.integers(0, 255, (batch, src, src, 3), np.uint8)).to(dev)
+        masks = torch.from_numpy(rng.integers(0, config.num_classes, (batch, src, src),
+                                              np.uint8)).to(dev)
+        step = FT.make_fused_finetune_step(config, aug_cfg, device=dev)
+        gen = torch.Generator(device=dev)
+
+        def run(i):
+            gen.manual_seed(view_seed(1, 0, i))
+            return step(state, imgs, masks, gen)
+
+        metric = f"hooknet_finetune_pairs_per_sec_per_chip[{arch},b{batch},{SEG_SIZE}px]"
+        return run, metric, batch, "pairs"
+
+    C = config.num_fg  # foreground classes, as in the eval CLIs
+    S = seg_size
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    ctx, tgt = normal(batch, S, S, 3), normal(batch, S, S, 3)
+    masks = torch.from_numpy(rng.integers(0, C + 1, (batch, S, S)).astype(np.int32)).to(dev)
+    stats = EV.make_chunk_stats(state.model, C, amp=True)
+    acc = torch.zeros((4, C), dtype=torch.int64, device=dev)
+
+    def run(i):
+        nonlocal acc
+        acc = stats(ctx, tgt, masks, acc)
+        return {"loss": acc[0, 0]}  # the sync reads the counts
+
+    metric = f"hooknet_inference_tiles_per_sec_per_chip[{arch},chunk{batch},{SEG_SIZE}px]"
+    return run, metric, batch, "tiles"
+
+
+def main(argv=None, env=os.environ, img_size: int = IMG_SIZE, seg_size: int = SEG_SIZE) -> dict:
+    """Run the bench with the ``BENCH_*`` knobs of ``env``; returns the
+    last line's fields with each window's rate, the quartiles and the peak
+    memory. ``img_size`` / ``seg_size`` are the SSL / HookNet views' sizes:
+    bench.py's 224 / 256, smaller only in CPU tests (the metric's name keeps
+    bench.py's)."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    arch = env.get("BENCH_ARCH", "resnet18")
+    batch = int(env.get("BENCH_BATCH", "32"))
+    iters = int(env.get("BENCH_ITERS", "20"))
+    warmup = int(env.get("BENCH_WARMUP", "3"))
+    repeats = int(env.get("BENCH_REPEATS", "5"))
+    mode = env.get("BENCH_MODE", "pipeline")
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(f"BENCH_MODE={mode}: not ported yet, ROADMAP.md queue 1 "
+                                  f"item {_NOT_PORTED[mode]}")
+    if mode not in ("pipeline", "step", "hooknet", "infer"):
+        raise ValueError(f"unknown BENCH_MODE {mode!r}")
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    if mode in ("pipeline", "step"):
+        run, metric, per_step, unit = _ssl_mode(mode, arch, batch, env, dev, rng, img_size)
+    else:
+        run, metric, per_step, unit = _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size)
+
     for i in range(warmup):
         metrics = run(i)
     float(metrics["loss"])  # sync
@@ -123,22 +190,17 @@ def main(argv=None, env=os.environ, img_size: int = IMG_SIZE) -> dict:
         dt = time.perf_counter() - t0
         if not np.isfinite(loss):
             raise RuntimeError(f"non-finite loss {loss} in the benchmark")
-        rates.append(batch * iters * (2 + 2 * K) / dt)
-        print(f"window {r + 1}/{repeats}: {iters} steps in {dt:.4f} s, {rates[-1]:.2f} tile "
-              f"views/s, {1e3 * dt / iters:.2f} ms/step, loss {loss:.6f}", flush=True)
+        rates.append(per_step * iters / dt)
+        print(f"window {r + 1}/{repeats}: {iters} steps in {dt:.4f} s, {rates[-1]:.2f} {unit}/s, "
+              f"{1e3 * dt / iters:.2f} ms/step, loss {loss:.6f}", flush=True)
     q1, median, q3 = (statistics.quantiles(rates, n=4) if len(rates) > 1
                       else (rates[0], rates[0], rates[0]))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{mode} on {name}: median {median:.2f} tile views/s, quartiles {q1:.2f} / {q3:.2f} "
+    print(f"{mode} on {name}: median {median:.2f} {unit}/s, quartiles {q1:.2f} / {q3:.2f} "
           f"over {repeats} windows of {iters} steps; peak memory "
           + (f"{peak / 2**30:.2f} GiB" if peak is not None else "not measured (cpu)"), flush=True)
-    line = {
-        "metric": f"ssl_pretrain_e2e_tile_views_per_sec_per_chip[{arch},b{batch},scale4,"
-                  f"{IMG_SIZE}px,{mode}]",
-        "value": median,
-        "unit": "tiles/sec/chip",
-    }
+    line = {"metric": metric, "value": median, "unit": "tiles/sec/chip"}
     print(json.dumps(line), flush=True)
     return {**line, "rates": rates, "q1": q1, "q3": q3, "peak_bytes": peak, "device": name}
 

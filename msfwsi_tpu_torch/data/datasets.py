@@ -1,6 +1,7 @@
-"""Dataset manifests of SSL pretraining: which tile files are in play.
+"""Dataset manifests of SSL pretraining and fine-tuning: which tile files
+are in play.
 
-Port of the pretrain part of ``msfwsi_tpu/data/datasets.py``, reading the
+Port of the pretrain and seg parts of ``msfwsi_tpu/data/datasets.py``, reading the
 CSVs with the ``csv`` module (the port has no pandas) and keeping the JAX
 package's selection exactly:
 
@@ -12,12 +13,17 @@ package's selection exactly:
   * PAIP (``train_data.csv``): the same, with fold membership by the full
     file name, and ``fold=-1`` keeping every file;
   * Camelyon16 (``dataset.json``): ``n_sample`` tiles per slide drawn
-    anew each epoch from ``(seed, epoch)``.
+    anew each epoch from ``(seed, epoch)``;
+  * fine-tuning: (image, mask) pairs of the same training rows (threshold
+    0.1 for BCSS, 0.7 for PAIP), and the fold's validation slides grouped
+    by ``filename`` in first-appearance order, without frac, with BCSS's
+    ``shift`` tiles left out.
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import os
 import random
@@ -30,6 +36,12 @@ __all__ = [
     "bcss_pretrain_files",
     "paip_pretrain_files",
     "Camelyon16Manifest",
+    "SegSample",
+    "SlideGroup",
+    "bcss_seg_samples",
+    "bcss_seg_val_slides",
+    "paip_seg_samples",
+    "paip_seg_val_slides",
 ]
 
 # bcss.py:13-19
@@ -100,6 +112,64 @@ def paip_pretrain_files(
         val = set(PAIP_VAL_SET[fold])
         rows = [r for r in rows if r["filename"] not in val]
     return [r["filename_img"] for r in _apply_common(rows, threshold, frac)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SegSample:
+    img: str
+    mask: str
+
+
+@dataclasses.dataclass(frozen=True)
+class SlideGroup:
+    filename: str
+    samples: tuple[SegSample, ...]
+
+
+def _seg_samples(rows: list[dict]) -> list[SegSample]:
+    return [SegSample(r["filename_img"], r["filename_mask"]) for r in rows]
+
+
+def _slide_groups(rows: list[dict], threshold: float) -> list[SlideGroup]:
+    """Rows at or above ``threshold`` grouped by ``filename``, in order of
+    first appearance (pandas' ``unique()``)."""
+    groups: dict[str, list[dict]] = {}
+    for r in rows:
+        if _ratio(r) >= threshold:
+            groups.setdefault(r["filename"], []).append(r)
+    return [SlideGroup(name, tuple(_seg_samples(rs))) for name, rs in groups.items()]
+
+
+def bcss_seg_samples(data_path: str, fold: int = 0, threshold: float = 0.1,
+                     frac: float = 1.0) -> list[SegSample]:
+    """Train-fold (image, mask) pairs, selected as :func:`bcss_pretrain_files`."""
+    val = set(BCSS_VAL_SET[fold])
+    rows = [r for r in _read_csv(data_path, "data.csv")
+            if _bcss_slide_code(r["filename"]) not in val]
+    return _seg_samples(_apply_common(rows, threshold, frac))
+
+
+def bcss_seg_val_slides(data_path: str, fold: int = 0,
+                        threshold: float = 0.1) -> list[SlideGroup]:
+    """The fold's validation slides; ``shift`` tiles left out (``bcss.py:135-136``)."""
+    val = set(BCSS_VAL_SET[fold])
+    rows = [r for r in _read_csv(data_path, "data.csv")
+            if _bcss_slide_code(r["filename"]) in val and "shift" not in r["filename"]]
+    return _slide_groups(rows, threshold)
+
+
+def paip_seg_samples(data_path: str, fold: int = 0, threshold: float = 0.7,
+                     frac: float = 1.0) -> list[SegSample]:
+    val = set(PAIP_VAL_SET[fold])
+    rows = [r for r in _read_csv(data_path, "train_data.csv") if r["filename"] not in val]
+    return _seg_samples(_apply_common(rows, threshold, frac))
+
+
+def paip_seg_val_slides(data_path: str, fold: int = 0,
+                        threshold: float = 0.7) -> list[SlideGroup]:
+    val = set(PAIP_VAL_SET[fold])
+    rows = [r for r in _read_csv(data_path, "train_data.csv") if r["filename"] in val]
+    return _slide_groups(rows, threshold)
 
 
 class Camelyon16Manifest:

@@ -32,7 +32,7 @@ import torch
 
 from .. import native, resolve_device
 
-__all__ = ["NUM_THREADS", "TileBatchLoader", "synthetic_tile_library"]
+__all__ = ["NUM_THREADS", "TileBatchLoader", "load_slide_arrays", "synthetic_tile_library"]
 
 NUM_THREADS = 8  # decode threads of a loader
 
@@ -279,6 +279,19 @@ class TileBatchLoader:
             # an abandoned generator (GeneratorExit) closes quietly.
             if errors and completed:
                 raise errors[0]
+
+
+def load_slide_arrays(root: str, group, num_threads: int = NUM_THREADS):
+    """Decode one validation slide group (a ``datasets.SlideGroup``) with
+    the port's decoder: ``(imgs (T, H, W, 3), masks (T, H, W))`` uint8, the
+    grey masks as stored."""
+    imgs = [osp.join(root, s.img) for s in group.samples]
+    masks = [osp.join(root, s.mask) for s in group.samples]
+    out = []
+    for paths in (imgs, masks):
+        h, w, c = native.probe(paths[0])
+        out.append(native.decode_batch(paths, h, w, c, num_threads))
+    return out[0], out[1]
 
 
 def synthetic_tile_library(

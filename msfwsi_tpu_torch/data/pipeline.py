@@ -1,18 +1,27 @@
-"""SSL view construction on the device: raw uint8 tiles -> the train batch.
+"""View construction on the device: raw uint8 tiles -> the train batch.
 
-Port of the SSL part of ``msfwsi_tpu/data/pipeline.py``: two context views
-(RRC 224 + color aug) and two target view stacks (full-res color aug ->
-grid x grid blockshape -> per-tile RRC 224 -> jigsaw shuffle), plus the
-inverse permutations. Each view's random parameters are drawn by
-``sample_*`` and applied by ``apply_*``; :func:`make_ssl_views` does both,
-or applies parameters it is given.
+Port of ``msfwsi_tpu/data/pipeline.py``.
+
+  * SSL: two context views (RRC 224 + color aug) and two target view
+    stacks (full-res color aug -> grid x grid blockshape -> per-tile RRC
+    224 -> jigsaw shuffle), plus the inverse permutations.
+  * Fine-tuning: a Resize(256) context view and a CenterCrop(256) target
+    view of each 1024 px tile, both flipped together and color-jittered
+    with the same draws, with their masks (nearest / cropped).
+  * Evaluation: the same two views without flip or jitter, built on the
+    device, or on the host as uint8 (:func:`make_seg_val_views_host`).
+
+Each view's random parameters are drawn by ``sample_*`` and applied by
+``apply_*``; ``make_*`` does both, or applies parameters it is given.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..ops import augment as A
@@ -27,6 +36,11 @@ __all__ = [
     "apply_target_view",
     "sample_ssl_views",
     "make_ssl_views",
+    "sample_seg_train_views",
+    "apply_seg_train_views",
+    "make_seg_train_views",
+    "make_seg_val_views",
+    "make_seg_val_views_host",
 ]
 
 
@@ -37,6 +51,7 @@ class AugConfig:
     img_size: int = 224  # SSL view size (--img-sz)
     grid: int = 4  # sqrt(K): 4x4 target tiles
     tile_px: int = 256  # sub-tile size before the per-tile RRC
+    seg_size: int = 256  # fine-tuning / evaluation view size
     rrc_scale: tuple[float, float] = (0.5, 1.0)
     # Augmentation compute dtype; bf16 under --amp (halves the traffic of
     # the full-resolution color ops and sends blur/sharpen to the kernel).
@@ -164,3 +179,113 @@ def make_ssl_views(tiles_u8, cfg: AugConfig = AugConfig(), generator=None,
         "rev1": rev1,
         "rev2": rev2,
     }
+
+
+def sample_seg_train_views(gen, B: int, cfg: AugConfig):
+    """Draws of the fine-tuning views: a per-sample horizontal flip and one
+    ColorJitter draw per sample, shared by its context and target views."""
+    return {
+        "flip": torch.rand((B,), generator=gen, device=gen.device) < 0.5,
+        "jitter": A.sample_jitter_params(gen, B, A.ColorJitterConfig(), cfg.dtype),
+    }
+
+
+def apply_seg_train_views(imgs_u8, masks, p, cfg: AugConfig):
+    """Fine-tuning batch from (B, H, W, 3) uint8 tiles and (B, H, W) masks
+    with drawn parameters ``p``, as the JAX package builds it: views first,
+    then ColorJitter at ``seg_size``.
+
+      * context: Resize(seg_size), the flip folded into the column matrix;
+        its mask nearest-resized with the flip folded into the indices;
+      * target: CenterCrop(seg_size) with the flip as the mirrored column
+        matrix of an identity-scale resample of the crop (one-hot rows, so
+        exact); its mask cropped and mirrored by a column gather;
+      * ColorJitter on both with the same draws, the target taking the
+        context's gray means (the reference jitters the full source, whose
+        statistics the resized view carries), then Normalize.
+
+    Returns ((context, target) images, (context, target) int32 masks), all
+    (B, seg_size, seg_size[, 3])."""
+    S = cfg.seg_size
+    flip = p["flip"]
+    x = _to_float(imgs_u8, cfg.dtype)
+    B = x.shape[0]
+    zeros = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    full = torch.full_like(zeros, S)
+    # Rows and columns outside the centre crop meet only zero weights in the
+    # JAX package's full-tile resample matrices: cropping first is exact.
+    tgt = A.crop_and_resize_mxu(A.center_crop(x, S), (zeros, zeros, full, full), S, flip=flip)
+    ctx = A.resize_bilinear(x, S, flip=flip)
+    ctx_mask = A.resize_nearest(masks, S, flip=flip)
+
+    ctx, means = A.apply_color_jitter(ctx, *p["jitter"], return_means=True)
+    tgt = A.apply_color_jitter(tgt, *p["jitter"], means=means)
+
+    ar = torch.arange(S, device=masks.device)
+    cols = torch.where(flip[:, None], S - 1 - ar, ar)  # (B, S)
+    tgt_mask = A.center_crop(masks, S).gather(2, cols[:, None, :].expand(B, S, S))
+
+    ctx = A.normalize(ctx, cfg.mean, cfg.std)
+    tgt = A.normalize(tgt, cfg.mean, cfg.std)
+    return (ctx, tgt), (ctx_mask.to(torch.int32), tgt_mask.to(torch.int32))
+
+
+def make_seg_train_views(imgs_u8, masks, cfg: AugConfig = AugConfig(), generator=None,
+                         params=None):
+    """:func:`apply_seg_train_views` with parameters drawn from
+    ``generator`` (on the tiles' device) or given as ``params``."""
+    if params is None:
+        if generator is None:
+            raise ValueError("make_seg_train_views needs a generator or drawn params")
+        params = sample_seg_train_views(generator, imgs_u8.shape[0], cfg)
+    return apply_seg_train_views(imgs_u8, masks, params, cfg)
+
+
+def make_seg_val_views(imgs_u8, masks, cfg: AugConfig = AugConfig()):
+    """Evaluation batch on the device: Resize(seg_size) + Normalize context
+    and CenterCrop(seg_size) + Normalize target (``evaluate.py:151-178``),
+    with their int32 masks."""
+    x = _to_float(imgs_u8, cfg.dtype)
+    ctx = A.normalize(A.resize_bilinear(x, cfg.seg_size), cfg.mean, cfg.std)
+    ctx_mask = A.resize_nearest(masks, cfg.seg_size)
+    tgt = A.normalize(A.center_crop(x, cfg.seg_size), cfg.mean, cfg.std)
+    tgt_mask = A.center_crop(masks, cfg.seg_size)
+    return (ctx, tgt), (ctx_mask.to(torch.int32), tgt_mask.to(torch.int32))
+
+
+def _resize_u8_host_np(img: np.ndarray, out: int) -> np.ndarray:
+    """Bilinear resize of one (H, W, C) uint8 image to (out, out): the
+    2-tap half-pixel sampling of :func:`~..ops.augment.resize_bilinear` in
+    fp32, rounded half up as cv2's fixed-point uint8 path rounds (the JAX
+    package's numpy path, ``pipeline.py:221``)."""
+
+    def taps(src, dst):
+        x = (np.arange(dst) + 0.5) * src / dst - 0.5
+        lo = np.clip(np.floor(x).astype(np.int64), 0, src - 1)
+        hi = np.clip(lo + 1, 0, src - 1)
+        return lo, hi, (x - np.floor(x)).astype(np.float32)
+
+    H, W = img.shape[0], img.shape[1]
+    ylo, yhi, yf = taps(H, out)
+    xlo, xhi, xf = taps(W, out)
+    x = img.astype(np.float32)
+    rows = x[ylo] * (1.0 - yf)[:, None, None] + x[yhi] * yf[:, None, None]
+    cols = rows[:, xlo] * (1.0 - xf)[None, :, None] + rows[:, xhi] * xf[None, :, None]
+    return np.clip(np.floor(cols + 0.5), 0, 255).astype(np.uint8)
+
+
+def make_seg_val_views_host(imgs_u8, masks, cfg: AugConfig = AugConfig(), num_threads: int = 8):
+    """Evaluation views built on the host as uint8, the reference's split of
+    work (albu Resize / CenterCrop on uint8, then Normalize on the device):
+    ``(ctx_u8 (T,s,s,3), tgt_u8 (T,s,s,3), tgt_mask (T,s,s) int32)`` numpy
+    arrays, the resizes on a thread pool (numpy releases the GIL)."""
+    imgs_u8 = np.ascontiguousarray(imgs_u8)
+    masks = np.ascontiguousarray(masks)
+    S = cfg.seg_size
+    with ThreadPoolExecutor(num_threads) as pool:
+        ctx = np.stack(list(pool.map(lambda im: _resize_u8_host_np(im, S), imgs_u8)))
+    H, W = imgs_u8.shape[1], imgs_u8.shape[2]
+    y0, x0 = (H - S) // 2, (W - S) // 2
+    tgt = imgs_u8[:, y0 : y0 + S, x0 : x0 + S]
+    tmask = masks[:, y0 : y0 + S, x0 : x0 + S].astype(np.int32)
+    return ctx, tgt, tmask

@@ -46,8 +46,8 @@ import torch
 from .. import native, resolve_device
 from ..data.loader import NUM_THREADS
 
-__all__ = ["write_png", "smooth_tiles", "write_bcss_dataset", "decode_rate", "h2d_ms",
-           "cli_argv", "cli_rate", "cli_fill_s", "main"]
+__all__ = ["write_png", "smooth_tiles", "write_bcss_dataset", "write_bcss_masks", "decode_rate",
+           "h2d_ms", "cli_argv", "cli_rate", "cli_fill_s", "main"]
 
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}
 
@@ -133,6 +133,29 @@ def write_bcss_dataset(root: str, tiles: np.ndarray, threads: int = NUM_THREADS)
         for i, name in enumerate(files):
             w.writerow([f"TCGA-{codes[i % 4]}-{i:04d}", name, "", 0.5])
     return files
+
+
+def write_bcss_masks(root: str, files: Sequence[str], masks: np.ndarray, n_val: int,
+                     threads: int = NUM_THREADS) -> list[str]:
+    """Make a :func:`write_bcss_dataset` directory a fine-tuning one:
+    ``masks`` (N, H, W) uint8 as grey ``root/masks/mask_NNNN.png`` and
+    ``data.csv`` rewritten with their ``filename_mask``. The last ``n_val``
+    tiles become one slide of fold 0's validation set (``TCGA-OL-0000``);
+    the others keep their slide codes, outside it. Returns the mask paths."""
+    os.makedirs(os.path.join(root, "masks"), exist_ok=True)
+    names = [f"masks/mask_{i:04d}.png" for i in range(len(files))]
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(lambda i: write_png(os.path.join(root, names[i]), masks[i]),
+                      range(len(files))))
+    codes = ("A2", "B6", "C4", "D1")  # not in BCSS_VAL_SET[0]
+    n_train = len(files) - n_val
+    with open(os.path.join(root, "data.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["filename", "filename_img", "filename_mask", "ratio_masked_area"])
+        for i, (img, mask) in enumerate(zip(files, names)):
+            slide = f"TCGA-{codes[i % 4]}-{i:04d}" if i < n_train else "TCGA-OL-0000"
+            w.writerow([slide, img, mask, 0.5])
+    return names
 
 
 def decode_rate(paths, shape, threads: int = NUM_THREADS, reps: int = 2) -> float:

@@ -1,4 +1,4 @@
-"""Multi-scale ResNet encoders in PyTorch (pooled mode).
+"""Multi-scale ResNet encoders in PyTorch (pooled and pyramid modes).
 
 Port of ``msfwsi_tpu/models/resnet.py``: the torchvision layout and
 parameter names (so ``state_dict`` keys are the reference's), the
@@ -105,9 +105,13 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet whose forward takes NHWC images and returns the 4-tuple of
-    stage-wise global-average-pooled (B, C_i) features — the reference's
-    ``return_features=True`` path."""
+    """ResNet whose forward takes NHWC images and returns, with
+    ``features="pooled"`` (the default), the 4-tuple of stage-wise
+    global-average-pooled (B, C_i) features (the reference's
+    ``return_features=True`` path), or with ``features="pyramid"`` the
+    5-level NHWC feature pyramid (stem/2, layer1/4, layer2/8, layer3/16,
+    layer4/32) of the smp encoders that HookNet decodes; the stem level is
+    taken after ``relu(bn1(conv1))``, before the max-pool."""
 
     def __init__(self, stage_sizes, block_cls=BasicBlock, zero_init_residual: bool = False):
         super().__init__()
@@ -126,15 +130,27 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         e = block_cls.expansion
         self.feature_dims = (64 * e, 128 * e, 256 * e, 512 * e)
+        self.pyramid_dims = (64, *self.feature_dims)
 
-    def forward(self, x):
+    def pyramid_nchw(self, x):
+        """The 5-level pyramid of NHWC images ``x`` as NCHW views of
+        ``channels_last`` memory (the layout the decoders compute in)."""
         x = x.permute(0, 3, 1, 2)  # NHWC data seen as an NCHW channels_last view
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
-        pooled = []
+        stem = torch.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(stem)
+        levels = [stem]
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = layer(x)
-            pooled.append(x.mean(dim=(2, 3)))
-        return tuple(pooled)
+            levels.append(x)
+        return levels
+
+    def forward(self, x, features: str = "pooled"):
+        levels = self.pyramid_nchw(x)
+        if features == "pyramid":
+            return tuple(f.permute(0, 2, 3, 1) for f in levels)
+        if features == "pooled":
+            return tuple(f.mean(dim=(2, 3)) for f in levels[1:])
+        raise ValueError(f"unknown features mode: {features!r}")
 
 
 # arch -> (block, stage_sizes); resnet10 (one block per stage) keeps the

@@ -1,4 +1,4 @@
-"""Batched on-device image augmentation (the SSL subset), NHWC, in PyTorch.
+"""Batched on-device image augmentation (the SSL and seg subsets), NHWC, in PyTorch.
 
 Port of ``msfwsi_tpu/ops/augment.py``. Images are float in [0, 1], NHWC.
 Every random op is split in two: ``sample_*`` draws its parameters from an
@@ -49,6 +49,9 @@ __all__ = [
     "sample_rrc_boxes",
     "crop_and_resize_mxu",
     "random_resized_crop",
+    "center_crop",
+    "resize_bilinear",
+    "resize_nearest",
 ]
 
 _HALF_DTYPES = (torch.bfloat16, torch.float16)
@@ -133,11 +136,18 @@ def _apply_hue(x, fh):
     return _hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
 
 
-def apply_color_jitter(img, fb, fc, fs, fh, perm, apply):
+def apply_color_jitter(img, fb, fc, fs, fh, perm, apply, means=None,
+                       return_means: bool = False):
     """ColorJitter with given parameters, in the fused form of the JAX
     package: brightness, contrast and saturation compose to one affine map
     ``a*x + b*gray(x) + c`` on each side of the hue op, with the clip
-    deferred to the end of each side."""
+    deferred to the end of each side.
+
+    The contrast op blends with the image-wide gray mean, once before the
+    hue op (``mg``) and once after (``mg2``). ``return_means=True`` also
+    returns the ``(mg, mg2)`` this image gave; ``means=(mg, mg2)`` uses
+    those instead of this image's, so a crop is jittered with the
+    statistics of the view it was cut from."""
     B = img.shape[0]
     dt = img.dtype
     dev = img.device
@@ -180,13 +190,15 @@ def apply_color_jitter(img, fb, fc, fs, fh, perm, apply):
         return a, b, c
 
     g = rgb_to_grayscale(img)
-    a1, b1, c1 = run_segment(True, gray_mean(g))
+    mg = gray_mean(g) if means is None else means[0]
+    a1, b1, c1 = run_segment(True, mg)
     y = a1 * img + b1 * g + c1
     z = _apply_hue(y.clamp(0.0, 1.0), fh)
     g2 = rgb_to_grayscale(z)
-    a2, b2, c2 = run_segment(False, gray_mean(g2))
-    out = (a2 * z + b2 * g2 + c2).clamp(0.0, 1.0)
-    return torch.where(apply, out, img)
+    mg2 = gray_mean(g2) if means is None else means[1]
+    a2, b2, c2 = run_segment(False, mg2)
+    out = torch.where(apply, (a2 * z + b2 * g2 + c2).clamp(0.0, 1.0), img)
+    return (out, (mg, mg2)) if return_means else out
 
 
 def color_jitter(gen, img, cfg: ColorJitterConfig = ColorJitterConfig()):
@@ -468,3 +480,43 @@ def random_resized_crop(gen, img, out_size: int, scale=(0.5, 1.0), ratio=(3 / 4,
     B, H, W, _ = img.shape
     boxes = sample_rrc_boxes(gen, B, (H, W), scale, ratio)
     return crop_and_resize_mxu(img, boxes, out_size, flip=flip)
+
+
+def center_crop(img, crop: int):
+    """albu CenterCrop(crop, crop) of (B, H, W, ...): a static slice."""
+    H, W = img.shape[1], img.shape[2]
+    y0, x0 = (H - crop) // 2, (W - crop) // 2
+    return img[:, y0 : y0 + crop, x0 : x0 + crop]
+
+
+def resize_bilinear(img, out_size: int, flip=None):
+    """Full-image bilinear resize (albu Resize, cv2 INTER_LINEAR) through
+    the matmul resampler; ``flip`` (B,) folds a per-sample horizontal flip
+    into the column matrix (the half-pixel grid is mirror-symmetric, so
+    this equals flipping the output)."""
+    B, H, W, _ = img.shape
+    zeros = torch.zeros((B,), dtype=torch.int32, device=img.device)
+    boxes = (zeros, zeros, torch.full_like(zeros, H), torch.full_like(zeros, W))
+    return crop_and_resize_mxu(img, boxes, out_size, flip=flip)
+
+
+def _nearest_indices(src: int, out: int, device):
+    """INTER_NEAREST source indices as the JAX package computes them: fp32
+    ``(arange + 0.5) * src / out - 0.5``, rounded half to even, clipped."""
+    x = (torch.arange(out, dtype=torch.float32, device=device) + 0.5) * src / out - 0.5
+    return torch.round(x).to(torch.int64).clamp(0, src - 1)
+
+
+def resize_nearest(img, out_size: int, flip=None):
+    """Nearest-neighbour resize of (B, H, W[, C]) (albu resizes masks with
+    INTER_NEAREST). ``flip`` (B,) bool folds a horizontal flip into the
+    column indices, ``x[..., W-1-xs]``: nearest rounding does not commute
+    with a flip at ties, so flipping the output would differ."""
+    H, W = img.shape[1], img.shape[2]
+    ys = _nearest_indices(H, out_size, img.device)
+    xs = _nearest_indices(W, out_size, img.device)
+    rows = img[:, ys]
+    if flip is None:
+        return rows[:, :, xs]
+    f = flip.view(-1, *([1] * (img.dim() - 1)))
+    return torch.where(f, rows[:, :, W - 1 - xs], rows[:, :, xs])

@@ -1,4 +1,5 @@
-"""SimSiam losses of MSF-WSI (port of ``msfwsi_tpu/ops/losses.py``).
+"""SimSiam losses of MSF-WSI and the fine-tuning Dice loss (port of
+``msfwsi_tpu/ops/losses.py``).
 
 Reductions run in fp32 whatever the compute dtype.
 """
@@ -9,7 +10,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["cosine_similarity", "simsiam_loss", "msfwsi_loss"]
+__all__ = ["cosine_similarity", "simsiam_loss", "msfwsi_loss", "dice_loss"]
 
 
 def cosine_similarity(a, b, eps: float = 1e-8):
@@ -41,3 +42,33 @@ def msfwsi_loss(outputs: dict, fuser_weights: Sequence[float]):
         per_path[path] = loss
     total = per_path["context"] + per_path["target"] + per_path["fuser"]
     return total, per_path
+
+
+def dice_loss(logits, target, classes: Sequence[int] | None = None, smooth: float = 0.0,
+              eps: float = 1e-7, sample_mask=None):
+    """Multiclass soft Dice loss on NHWC logits (smp-compatible).
+
+    ``logits`` (N, H, W, C), ``target`` (N, H, W) integer classes in [0, C).
+    Per class c, with sums over the batch and the pixels,
+    ``loss_c = 1 - 2*sum(p_c * 1[y=c]) / max(sum(p_c + 1[y=c]), eps)``,
+    zeroed when class c never appears in the target; the result is the mean
+    of ``loss_c`` over ``classes`` (the reference passes ``[1..C]``, leaving
+    out background 0), or over all classes. The softmax runs in fp32.
+    ``sample_mask`` (N,): samples at 0 contribute to no sum, so a padded
+    batch gives the loss of its real samples exactly."""
+    num_classes = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    onehot = (target[..., None] == torch.arange(num_classes, device=target.device)).float()
+    if sample_mask is not None:
+        m = sample_mask.float().view(-1, 1, 1, 1)
+        probs = probs * m
+        onehot = onehot * m
+    dims = (0, 1, 2)
+    intersection = (probs * onehot).sum(dim=dims)
+    cardinality = (probs + onehot).sum(dim=dims)
+    score = (2.0 * intersection + smooth) / (cardinality + smooth).clamp_min(eps)
+    present = onehot.sum(dim=dims) > 0
+    loss = (1.0 - score) * present.float()
+    if classes is not None:
+        loss = loss[torch.as_tensor(list(classes), device=loss.device)]
+    return loss.mean()

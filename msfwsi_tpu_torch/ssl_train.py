@@ -89,8 +89,8 @@ def _unsupported(args) -> list[str]:
     return [f"{flag}: not ported yet, {item}" for bad, flag, item in checks if bad]
 
 
-def warn_noop_flags(logger, args, parser_defaults) -> None:
-    for flag, why in NOOP_FLAGS.items():
+def warn_noop_flags(logger, args, parser_defaults, table=NOOP_FLAGS) -> None:
+    for flag, why in table.items():
         if getattr(args, flag) != parser_defaults.get(flag):
             logger.info(f"=> flag --{flag.replace('_', '-')} accepted for parity but inert: {why}")
 
@@ -327,7 +327,7 @@ def _train(args, dev, defaults, cmdline: str, logger) -> dict:
             "best_loss": best_loss, "state": state}
 
 
-def _trackers(args, logger):
+def _trackers(args, logger, job_type: str = "pretrain"):
     """TensorBoard and wandb, each where requested and importable."""
     tb_writer = wandb_run = None
     if args.tensorboard:
@@ -345,7 +345,7 @@ def _trackers(args, logger):
 
             wandb_run = wandb.init(
                 project="MSF-WSI Experiments", notes=args.run_notes, tags=args.run_tag,
-                group=args.run_group, name=args.run_name, job_type="pretrain",
+                group=args.run_group, name=args.run_name, job_type=job_type,
                 dir=args.log_dir, config=vars(args),
             )
             logger.info("=> initialise wandb logger successfully!")

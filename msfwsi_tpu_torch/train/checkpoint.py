@@ -7,13 +7,16 @@ and ``optimizer`` the Adam ``state_dict()``, so a resume restores weights,
 BatchNorm statistics, Adam's moments and its step. A ``.pth.tar`` that the
 JAX package wrote (``save_torch_file``) has no optimizer: it restores
 weights and BatchNorm statistics only. The JAX package's Orbax directories
-are not read; ``tools/export_torch.py`` converts them.
+are not read; ``tools/export_torch.py`` converts them. Fine-tuning keeps
+the reference's ``best_ft_model.pth.tar``, ``{epoch, arch, state_dict}``
+of the HookNet under the ``module.`` prefix.
 
 :func:`jax_msfwsi_to_torch` takes the ``params`` and ``batch_stats`` of the
 JAX package's MSFWSI as nested dicts of numpy arrays and returns the port's
 state dict: the reference's key names (torchvision ResNet layout,
 ``Sequential`` indices for the heads), conv kernels HWIO -> OIHW, dense
-kernels (in, out) -> (out, in).
+kernels (in, out) -> (out, in). :func:`jax_hooknet_to_torch` does the same
+for the JAX package's HookNet, under smp's key names.
 """
 
 from __future__ import annotations
@@ -24,12 +27,22 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["jax_msfwsi_to_torch", "checkpoint_path", "save_checkpoint", "resolve_checkpoint_arg",
-           "latest_checkpoint", "load_torch_file", "restore_checkpoint"]
+__all__ = ["jax_msfwsi_to_torch", "jax_hooknet_to_torch", "checkpoint_path", "save_checkpoint",
+           "resolve_checkpoint_arg", "latest_checkpoint", "load_torch_file", "restore_checkpoint",
+           "BEST_FT_MODEL", "save_best_ft_model", "load_ft_model"]
+
+BEST_FT_MODEL = "best_ft_model.pth.tar"
 
 
 def checkpoint_path(log_dir: str, epoch: int) -> str:
     return os.path.join(log_dir, f"checkpoint_{epoch:04d}.pth.tar")
+
+
+def _save_atomic(payload: dict, path: str) -> str:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
 
 
 def save_checkpoint(log_dir: str, state, epoch: int, arch: str) -> str:
@@ -45,10 +58,28 @@ def save_checkpoint(log_dir: str, state, epoch: int, arch: str) -> str:
         "optimizer": state.optimizer.state_dict(),
         "scaler": None,  # bf16 autocast needs no GradScaler
     }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    return path
+    return _save_atomic(payload, path)
+
+
+def save_best_ft_model(log_dir: str, model, epoch: int, arch: str) -> str:
+    """Write a fine-tuned HookNet as the reference's
+    ``<log_dir>/best_ft_model.pth.tar`` (``ssl_finetune.py:351-363``):
+    ``{epoch, arch, state_dict}``, the state dict under ``module.``,
+    atomically."""
+    payload = {
+        "epoch": epoch + 1,
+        "arch": arch,
+        "state_dict": {f"module.{k}": v for k, v in model.state_dict().items()},
+    }
+    return _save_atomic(payload, os.path.join(log_dir, BEST_FT_MODEL))
+
+
+def load_ft_model(path: str, model, map_location="cpu"):
+    """Load a fine-tuned HookNet file (``best_ft_model.pth.tar``, with or
+    without ``module.``) into ``model`` in place; returns the model."""
+    sd = {k.removeprefix("module."): v for k, v in load_torch_file(path, map_location).items()}
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def resolve_checkpoint_arg(path: str) -> str | None:
@@ -133,21 +164,28 @@ def _leaves(tree, path=()):
             yield path + (k,), np.asarray(v)
 
 
+def _encoder_name(parts) -> str:
+    """Torchvision name of a flax ResNet module path: ``layer1_0`` ->
+    ``layer1.0``, ``downsample_conv`` / ``downsample_bn`` ->
+    ``downsample.0`` / ``downsample.1``."""
+    out = []
+    for p in parts:
+        if re.fullmatch(r"layer\d+_\d+", p):
+            out.extend(p.split("_"))
+        elif p == "downsample_conv":
+            out.append("downsample.0")
+        elif p == "downsample_bn":
+            out.append("downsample.1")
+        else:
+            out.append(p)
+    return ".".join(out)
+
+
 def _module_name(path) -> str:
-    """Torch module name of a flax module path (without the leaf)."""
+    """Torch module name of a flax MSFWSI module path (without the leaf)."""
     top, rest = path[0], list(path[1:])
     if top in ("context_encoder", "target_encoder"):
-        parts = [top]
-        for p in rest:
-            if re.fullmatch(r"layer\d+_\d+", p):
-                parts.extend(p.split("_"))
-            elif p == "downsample_conv":
-                parts.append("downsample.0")
-            elif p == "downsample_bn":
-                parts.append("downsample.1")
-            else:
-                parts.append(p)
-        return ".".join(parts)
+        return f"{top}.{_encoder_name(rest)}"
     m = _HEAD.match(top)
     if m is None or len(rest) != 1:
         raise ValueError(f"unexpected MSFWSI variable path {'/'.join(path)}")
@@ -155,17 +193,47 @@ def _module_name(path) -> str:
     return f"{side}_{kind}.{idx}.{_HEAD_INDEX[kind][rest[0]]}"
 
 
-def jax_msfwsi_to_torch(variables: dict) -> dict:
-    """``{"params": ..., "batch_stats": ...}`` of the JAX MSFWSI -> the
-    port's ``MSFWSI.state_dict()`` (float32 CPU tensors)."""
+def _hooknet_module_name(path) -> str:
+    """Torch module name of a flax HookNet module path (without the leaf):
+    ``<branch>/encoder/...`` as the SSL encoders,
+    ``<branch>/decoder/block{i}/conv{n}/{conv|bn}`` ->
+    ``<branch>.decoder.blocks.{i}.conv{n}.{0|1}``,
+    ``<branch>/segmentation_head/conv`` -> ``<branch>.segmentation_head.0``."""
+    branch, part, rest = path[0], path[1], list(path[2:])
+    if part == "encoder":
+        return f"{branch}.encoder.{_encoder_name(rest)}"
+    if part == "decoder" and len(rest) == 3:
+        block, convn, sub = rest
+        idx = "0" if sub == "conv" else "1"
+        return f"{branch}.decoder.blocks.{block.removeprefix('block')}.{convn}.{idx}"
+    if part == "segmentation_head" and rest == ["conv"]:
+        return f"{branch}.segmentation_head.0"
+    raise ValueError(f"unexpected HookNet variable path {'/'.join(path)}")
+
+
+def _convert(variables: dict, module_name) -> dict:
     out = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables[collection]):
-            mod, leaf = _module_name(path[:-1]), path[-1]
+            leaf = path[-1]
             if leaf == "kernel":
                 value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
                 name = "weight"
             else:
                 name = _LEAF[leaf]
-            out[f"{mod}.{name}"] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+            out[f"{module_name(path[:-1])}.{name}"] = torch.from_numpy(
+                np.ascontiguousarray(value, np.float32))
     return out
+
+
+def jax_msfwsi_to_torch(variables: dict) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of the JAX MSFWSI -> the
+    port's ``MSFWSI.state_dict()`` (float32 CPU tensors)."""
+    return _convert(variables, _module_name)
+
+
+def jax_hooknet_to_torch(variables: dict) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of the JAX HookNet (numpy
+    dicts) -> the port's ``HookNet.state_dict()`` (float32 CPU tensors),
+    under the reference's smp key names."""
+    return _convert(variables, _hooknet_module_name)

@@ -1,2 +1,3 @@
 from .logger import close_logger, setup_logger  # noqa: F401
-from .misc import AverageMeter, ProgressMeter, dump_config, increment_path, prefetch_iter  # noqa: F401
+from .misc import (AverageMeter, BestRecorder, ProgressMeter, dump_config,  # noqa: F401
+                   increment_path, prefetch_iter)

@@ -1,6 +1,7 @@
 """Run-dir management, meters and a background iterator (port of
 ``msfwsi_tpu/utils/misc.py``; reference: ``src/utils/utils.py:10-24``
-increment_path, ``tools/ssl_train.py:502-541`` AverageMeter/ProgressMeter)."""
+increment_path, ``tools/ssl_train.py:502-541`` AverageMeter/ProgressMeter,
+``tools/ssl_finetune.py:614-634`` BestRecorder)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import re
 import threading
 from pathlib import Path
 
-__all__ = ["increment_path", "dump_config", "AverageMeter", "ProgressMeter", "prefetch_iter"]
+__all__ = ["increment_path", "dump_config", "AverageMeter", "ProgressMeter", "BestRecorder",
+           "prefetch_iter"]
 
 
 def prefetch_iter(iterable, depth: int = 1):
@@ -126,3 +128,19 @@ class ProgressMeter:
         width = len(str(self.total))
         heading = f"{self.prefix}[{batch:{width}d}/{self.total}]"
         return "\t".join([heading, *(str(m) for m in self.meters)])
+
+
+class BestRecorder:
+    """The best value seen so far; ``update`` returns ``(best, improved)``."""
+
+    def __init__(self, mode: str):
+        if mode not in ("min", "max"):
+            raise ValueError(f"invalid mode: {mode!r}")
+        self.mode = mode
+        self.best = float("inf") if mode == "min" else float("-inf")
+
+    def update(self, val):
+        improved = val < self.best if self.mode == "min" else val > self.best
+        if improved:
+            self.best = val
+        return self.best, improved

@@ -320,6 +320,11 @@ def test_bench_step_mode_prints_bench_py_line(capsys):
     assert np.isfinite(last["value"]) and last["value"] > 0
     assert sum(line.startswith("window ") for line in lines) == 2
     assert "median" in lines[-2] and "quartiles" in lines[-2]
-    for mode in ("hooknet", "infer", "eval_e2e"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            bench.main(["--device", "cpu"], env={"BENCH_MODE": mode})
+    for mode, metric in (("hooknet", "hooknet_finetune_pairs_per_sec_per_chip[resnet10,b2,256px]"),
+                         ("infer", "hooknet_inference_tiles_per_sec_per_chip"
+                                   "[resnet10,chunk2,256px]")):
+        bench.main(["--device", "cpu"], env={**env, "BENCH_MODE": mode}, seg_size=64)
+        last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert last["metric"] == metric and np.isfinite(last["value"]) and last["value"] > 0
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        bench.main(["--device", "cpu"], env={"BENCH_MODE": "eval_e2e"})

@@ -211,7 +211,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import msfwsi_tpu_torch.data.loader, msfwsi_tpu_torch.data.datasets\n"
         "import msfwsi_tpu_torch.data.packed, msfwsi_tpu_torch.native\n"
         "import msfwsi_tpu_torch.utils, msfwsi_tpu_torch.utils.imagenet, msfwsi_tpu_torch.bench\n"
-        "import msfwsi_tpu_torch.diag.datapath\n"
+        "import msfwsi_tpu_torch.diag.datapath, msfwsi_tpu_torch.ssl_finetune\n"
+        "import msfwsi_tpu_torch.models.hooknet, msfwsi_tpu_torch.ops.metrics\n"
+        "import msfwsi_tpu_torch.train.finetune, msfwsi_tpu_torch.train.evaluate\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

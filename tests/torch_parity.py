@@ -98,3 +98,20 @@ def port_aug_config(cfg):
 def numpy_tree(tree):
     """A JAX variables pytree as nested dicts of numpy arrays."""
     return jax.tree.map(np.asarray, dict(tree))
+
+
+def seg_view_draws(key, B: int, dtype):
+    """JAX ``make_seg_train_views(key, ...)``'s draws (``split(key)`` into
+    the jitter key and the flip key), as the port's parameters."""
+    k_cj, k_flip = jax.random.split(key)
+    flip = jax.random.uniform(k_flip, (B, 1, 1, 1)) < 0.5
+    jitter = JA._sample_jitter_params(k_cj, B, JA.ColorJitterConfig(), dtype)
+    return {"flip": t(flip[:, 0, 0, 0]), "jitter": [t(p) for p in jitter]}
+
+
+def state_numpy(module) -> dict:
+    """A module's state dict as numpy copies: a ``Tensor.numpy()`` view
+    would let a later in-place update of the module (a train-mode
+    BatchNorm's running stats) reach a JAX computation still reading the
+    buffer asynchronously."""
+    return {k: w.detach().numpy().copy() for k, w in module.state_dict().items()}
