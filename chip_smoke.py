@@ -80,7 +80,31 @@ Phases, each logged with a timestamp:
    ``--val-views device``; host and device views on one model scoring
    alike; the CLI's pairs/s (from each epoch's first batch in hand, the
    fill apart) beside phase "finetune"'s;
-14. the kernels JSON line, then the result line.
+14. eval_cli: ``evaluate.main`` in-process on phase "ft_cli"'s
+   ``best_ft_model.pth.tar`` and validation slide, with its ``--amp``,
+   ``--seg-size 256`` and chunk 128: every summary score within 1e-6 of a
+   validation of the same model with fp32 views (the CLI's, as the JAX
+   tool's) run in the phase; that validation with bf16 views (the
+   fine-tuning's) gives the micro F1 of the best epoch that phase "ft_cli"
+   recorded within 1e-6; then ``--val-views device`` (scores within 1e-3,
+   the views differ by design); no kernel launch;
+15. predict: ``predict.main`` at full width (resnet18 HookNet, 1024 px
+   tiles, chunk 128, ``--head both --stitch``) on the validation slide's
+   tiles and a 4096 px raw slide PNG that they tile: per-tile and stitched
+   palette PNGs, the target masks read back through the port's decoder
+   and scored on the host equal to phase "eval_cli"'s counts exactly;
+   tiles/s and peak memory; one 128-tile chunk traced by the profiler; no
+   kernel launch;
+16. features: ``extract_features.main`` from phase "cli"'s
+   ``checkpoint_0001.pth.tar`` (resnet18, scale 4, chunk 32, ``--amp``) on
+   both sides of fold 0: float16 features of the spec's shapes, the
+   context features within bf16's 2e-2 (relative to 1 + |x|) of an fp32
+   forward of the checkpoint's encoder, then ``linear_probe.main`` on them
+   with finite scores; tiles/s and peak memory; no kernel launch;
+17. bench eval_e2e: the port bench in mode ``eval_e2e`` at 32 tiles a
+   slide for a few slides; no kernel launch;
+18. the kernels JSON line (each kernel's count on every path, 0 on the
+   fine-tuning and inference paths), then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -91,6 +115,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import logging
 import math
 import os
 import shutil
@@ -955,7 +980,8 @@ def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
         raise AssertionError("best_ft_model.pth.tar differs from the model saved")
     rates = [16 * e["steps"] / (e["seconds"] - e["fill_seconds"]) for e in epochs]
     fills = [e["fill_seconds"] for e in epochs]
-    out.update(pairs_per_s=rates, fill_s=fills, val_s=[e["val_seconds"] for e in epochs])
+    out.update(pairs_per_s=rates, fill_s=fills, val_s=[e["val_seconds"] for e in epochs],
+               best_dir=res["log_dir"], best_f1=res["best"]["f1"])
 
     # one model, both kinds of evaluation views
     model = res["state"].model
@@ -991,8 +1017,269 @@ def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
     return out
 
 
+def _no_launches(phase, launches):
+    if any(launches.values()):
+        raise AssertionError(f"phase {phase} launched kernels {launches}, want none")
+
+
+def phase_eval_cli(dev, root, tmp, ft_cli_out, smi_line):
+    """The evaluation CLI in-process on phase "ft_cli"'s best model and
+    validation slide, with its ``--amp`` and chunk: every summary score
+    within 1e-6 of a validation of the same model with the CLI's fp32 views
+    run here; that validation with ft_cli's bf16 views gives ft_cli's best
+    epoch within 1e-6 (the gap between the two views is logged); then
+    ``--val-views device``. Returns the slide's counts and the numbers."""
+    from msfwsi_tpu_torch import evaluate
+    from msfwsi_tpu_torch.data import datasets as D
+    from msfwsi_tpu_torch.data.loader import load_slide_arrays
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, make_seg_val_views_host
+    from msfwsi_tpu_torch.models.hooknet import HookNet
+    from msfwsi_tpu_torch.ssl_finetune import CLASS_NAMES
+    from msfwsi_tpu_torch.train import checkpoint as C
+    from msfwsi_tpu_torch.train import evaluate as EV
+
+    weights = os.path.join(ft_cli_out["best_dir"], C.BEST_FT_MODEL)
+    model = C.load_ft_model(weights, HookNet(arch="resnet18", classes=6)).to(dev)
+    classes = CLASS_NAMES["bcss"]
+    slide = load_slide_arrays(root, D.bcss_seg_val_slides(root)[0])
+    direct = {}
+    for dtype in ("float32", "bfloat16"):  # the CLI's views (tools/evaluate.py's), ft_cli's
+        aug = AugConfig(seg_size=256, compute_dtype=dtype)
+        stats = EV.make_chunk_stats_hostviews(model, len(classes), aug, amp=True)
+        direct[dtype] = EV.validate_slides(stats, [make_seg_val_views_host(*slide, aug)], "host",
+                                           classes, chunk=128, device=dev).summary()
+    del model, stats, slide
+    out = {}
+    for views in ("host", "device"):
+        argv = ["-a", "resnet18", "--amp", "--seg-size", "256", "--val-chunk", "128",
+                "--data-name", "bcss", "--train-data", root, "--weights", weights, "--device",
+                str(dev), "--val-views", views, "--log-dir", os.path.join(tmp, "eval", views)]
+        _reset_counts()  # every kernel count to 0 just before the path
+        t = time.perf_counter()
+        res = evaluate.main(argv)
+        seconds = time.perf_counter() - t
+        launches = _read_counts()
+        s = res["summary"]
+        log("eval_cli", f"--val-views {views}: micro F1/IoU/acc {s['f1_micro']:.6f} / "
+            f"{s['iou_micro']:.6f} / {s['acc_micro']:.6f}, {16 / seconds:.1f} tiles/s for the "
+            f"whole run (model load, decode, views, forward) on {smi_line}, kernel launches "
+            f"{launches}")
+        _no_launches("eval_cli", launches)
+        out[views] = {"launches": launches, "summary": s, "seconds": seconds,
+                      "counts": res["slides"][0]["counts"]}
+    host = out["host"]["summary"]
+    fp32, bf16 = direct["float32"], direct["bfloat16"]
+    diff = max(abs(host[k] - fp32[k]) for k in fp32)
+    best_diff = abs(bf16["f1_micro"] - ft_cli_out["best_f1"])
+    log("eval_cli", f"micro F1 {host['f1_micro']:.8f}; a validation of the same model here with "
+        f"fp32 views {fp32['f1_micro']:.8f}, largest score difference {diff:.3g} (tolerance "
+        f"1e-6); with bf16 views {bf16['f1_micro']:.8f}, phase ft_cli's best epoch "
+        f"{ft_cli_out['best_f1']:.8f}, {best_diff:.3g} apart (tolerance 1e-6); fp32 against "
+        f"bf16 views {abs(fp32['f1_micro'] - bf16['f1_micro']):.3g} apart (not held: they round "
+        f"apart); device views {abs(out['device']['summary']['f1_micro'] - host['f1_micro']):.3g}"
+        " apart (they differ by design, within 1e-3)")
+    if not diff <= 1e-6:
+        raise AssertionError(f"the evaluation CLI's scores are {diff} from a direct validation")
+    if not best_diff <= 1e-6:
+        raise AssertionError(f"a validation with bf16 views is {best_diff} from ft_cli's best "
+                             "epoch")
+    for k, v in out["device"]["summary"].items():
+        if not abs(v - host[k]) <= 1e-3:
+            raise AssertionError(f"device views score {k} {v}, host views {host[k]}")
+    return {"launches": out["host"]["launches"], "launches_device": out["device"]["launches"],
+            "counts": out["host"]["counts"], "f1": host["f1_micro"],
+            "tiles_per_s": 16 / out["host"]["seconds"]}
+
+
+def phase_predict(dev, root, tmp, ft_cli_out, eval_out, smi_line):
+    """The prediction CLI at full width (resnet18 HookNet, 1024 px tiles,
+    chunk 128, both heads, stitched) on the validation slide's tiles and a
+    raw slide PNG that they tile: the target masks, read back through the
+    port's decoder and scored on the host, equal phase eval_cli's counts
+    exactly; one chunk's forward traced. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch import native, predict
+    from msfwsi_tpu_torch.data import datasets as D
+    from msfwsi_tpu_torch.data.pipeline import make_seg_val_views_host
+    from msfwsi_tpu_torch.data.png import png_size, write_png
+    from msfwsi_tpu_torch.ops.geometry import TileGrid
+    from msfwsi_tpu_torch.ops.metrics import get_stats
+    from msfwsi_tpu_torch.train import checkpoint as C
+    from msfwsi_tpu_torch.train import predict as PR
+
+    group = D.bcss_seg_val_slides(root)[0]
+    paths = [os.path.join(root, s.img) for s in group.samples]
+    imgs = native.decode_batch(paths, 1024, 1024, 3)
+    masks = native.decode_batch([os.path.join(root, s.mask) for s in group.samples], 1024, 1024, 1)
+    grid = TileGrid(4096, 4096, 1024)  # 4x4 tiles; the prep grid pads it to 5x5
+    ids = [r * grid.num_w + c for r in range(4) for c in range(4)]
+    tiles_dir = os.path.join(tmp, "pred_tiles", group.filename, "images")
+    os.makedirs(tiles_dir)
+    for i, p in zip(ids, paths):
+        os.symlink(p, os.path.join(tiles_dir, f"{i}.png"))
+    raw_dir = os.path.join(tmp, "pred_raw", "images")
+    os.makedirs(raw_dir)
+    raw = os.path.join(raw_dir, f"{group.filename}.png")
+    t = time.perf_counter()
+    write_png(raw, imgs.reshape(4, 4, 1024, 1024, 3).transpose(0, 2, 1, 3, 4)
+              .reshape(4096, 4096, 3), filters=(0,))
+    log("predict", f"raw slide {png_size(raw)} written in {time.perf_counter() - t:.1f} s; "
+        f"tiles {ids} of a {grid.num_h}x{grid.num_w} grid")
+    weights = os.path.join(ft_cli_out["best_dir"], C.BEST_FT_MODEL)
+    argv = ["-a", "resnet18", "--amp", "--seg-size", "256", "--val-chunk", "128", "--weights",
+            weights, "--tiles-dir", os.path.dirname(os.path.dirname(tiles_dir)), "--head",
+            "both", "--stitch", "--raw-data", os.path.dirname(raw_dir), "--device", str(dev),
+            "--log-dir", os.path.join(tmp, "pred_log")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    res = predict.main(argv)
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rate = res["tiles"] / res["seconds"]
+    log("predict", f"{res['tiles']} tiles in {res['seconds']:.3f} s, {rate:.1f} tiles/s (decode, "
+        f"host views, forward, PNG writes) on {smi_line}; peak memory {peak / 2**30:.2f} GiB; "
+        f"kernel launches {launches}")
+    _no_launches("predict", launches)
+    pdir = res["out_dir"]
+    tgt = native.decode_batch([os.path.join(pdir, group.filename, "target", f"{i}.png")
+                               for i in ids], 256, 256, 1)
+    tmask = masks[:, 384:640, 384:640].astype(np.int64)
+    counts = np.stack([c.sum(0).numpy() for c in get_stats(
+        torch.from_numpy(tgt).long() - 1, torch.from_numpy(tmask) - 1, 5, ignore_index=-1)])
+    same = bool(np.array_equal(counts, eval_out["counts"]))
+    log("predict", f"target masks scored on the host: counts equal phase eval_cli's: {same}")
+    if not same:
+        raise AssertionError(f"predicted masks score {counts.tolist()}, evaluation "
+                             f"{eval_out['counts'].tolist()}")
+    shapes = {}
+    for head, size in (("context", 1024), ("target", 4096)):
+        stitched = os.path.join(pdir, f"{group.filename}_{head}_stitched.png")
+        shapes[head] = png_size(stitched)
+        if shapes[head] != (size, size):
+            raise AssertionError(f"stitched {head} map {shapes[head]}, want {(size, size)}")
+    stitched_tgt = native.load_image(os.path.join(pdir, f"{group.filename}_target_stitched.png"))
+    if not np.array_equal(stitched_tgt, PR.stitch_target_preds(tgt, ids, grid)):
+        raise AssertionError("the stitched target map differs from its tiles' masks")
+    log("predict", f"stitched maps {shapes} hold the tiles' masks")
+
+    # one chunk's forward under the profiler
+    from msfwsi_tpu_torch.evaluate import eval_aug_config, load_hooknet
+
+    args = predict.build_parser().parse_args(argv)
+    model = load_hooknet(weights, "resnet18", 6, dev, args, logging.getLogger("chip_smoke"))
+    cfg = eval_aug_config(args)
+    ctx_u8, tgt_u8, _ = make_seg_val_views_host(imgs, masks, cfg)
+    ctx_d, tgt_d = (torch.from_numpy(np.concatenate([v] * 8)).to(dev) for v in (ctx_u8, tgt_u8))
+    fn = PR.make_chunk_preds_hostviews(model, cfg, heads=PR.HEADS, amp=True)
+    fn(ctx_d, tgt_d)
+    profile_steps(lambda: {"loss": fn(ctx_d, tgt_d)[1].sum()}, 3)
+    return {"launches": launches, "tiles_per_s": rate, "peak_bytes": peak}
+
+
+def phase_features(dev, root, tmp, ckpt_dir, smi_line):
+    """Tile features at full width from phase "cli"'s SSL checkpoint
+    (resnet18, scale 4, chunk 32, amp) on both sides of fold 0: shapes, fp16,
+    the validation slide's context features within bf16's 2e-2 of an fp32
+    forward of the checkpoint's context encoder, then the linear probe on
+    them. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch import extract_features, linear_probe, native
+    from msfwsi_tpu_torch.data import datasets as D
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, _to_float
+    from msfwsi_tpu_torch.ops import augment as A
+    from msfwsi_tpu_torch.train import checkpoint as C
+    from msfwsi_tpu_torch.train import features as F
+
+    ckpt = os.path.join(ckpt_dir, "checkpoint_0001.pth.tar")
+    dirs, spec, tiles, seconds = {}, None, 0, 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    for split in ("train", "val"):
+        res = extract_features.main([
+            "--weights", ckpt, "-a", "resnet18", "--scale", "4", "--chunk", "32", "--amp",
+            "--train-data", root, "--split", split, "--device", str(dev), "--out",
+            os.path.join(tmp, "feats", split), "--log-dir", os.path.join(tmp, "feats_log")])
+        dirs[split], spec = res["out_dir"], res["spec"]
+        tiles += res["tiles"]
+        seconds += res["seconds"]
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("features", f"{tiles} tiles in {seconds:.3f} s, {tiles / seconds:.1f} tiles/s (decode, "
+        f"17 encoder passes a tile, fetch, npz) on {smi_line}; peak memory "
+        f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
+    _no_launches("features", launches)
+    group = D.bcss_seg_val_slides(root)[0]
+    z = np.load(os.path.join(dirs["val"], f"{group.filename}.npz"))
+    for b, s, c in spec:
+        arr = z[f"{b}_s{s}"]
+        want = (16, c) if b == "context" else (16, 16, c)
+        if arr.shape != want or arr.dtype != np.float16 or not np.isfinite(arr).all():
+            raise AssertionError(f"{b}_s{s}: {arr.dtype} {arr.shape}, want float16 {want}")
+    # the context features against an fp32 forward of the checkpoint's encoder
+    sd = {k.removeprefix("module."): v for k, v in C.load_torch_file(ckpt).items()}
+    model = extract_features.encoders_model(sd, "resnet18", 4, ("context",), dev, ckpt)
+    imgs = torch.from_numpy(native.decode_batch(
+        [os.path.join(root, s.img) for s in group.samples], 1024, 1024, 3)).to(dev)
+    cfg = AugConfig()
+    with torch.no_grad():
+        x = _to_float(imgs)
+        ref = model.encode_context(A.normalize(A.resize_bilinear(x, 224), cfg.mean, cfg.std))
+    # under --amp the encoder's convolutions compute in bf16 (the stem's
+    # takes the fp32 views and autocast casts them)
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, a, out: seen.append(str(out.dtype)))
+             for m in model.context_encoder.modules() if isinstance(m, torch.nn.Conv2d)]
+    F.make_chunk_features(model, cfg, ("context",), amp=True)(imgs)
+    for h in hooks:
+        h.remove()
+    if sorted(set(seen)) != ["torch.bfloat16"]:
+        raise AssertionError(f"encoder convolutions under --amp take {sorted(set(seen))}")
+    worst = 0.0
+    for s in (1, 2, 3, 4):
+        got = torch.from_numpy(z[f"context_s{s}"].astype(np.float32)).to(dev)
+        want = ref[s - 1].float()
+        worst = max(worst, float(((got - want).abs() / (1 + want.abs())).max()))
+    log("features", f"context features against an fp32 forward: max |amp - fp32| / (1 + |fp32|) "
+        f"{worst:.4g} (tolerance 2e-2); encoder convolution outputs under --amp "
+        f"{sorted(set(seen))}")
+    if not worst <= 2e-2:
+        raise AssertionError(f"context features {worst} from the fp32 forward")
+    res = linear_probe.main(["--features", dirs["train"], "--features-val", dirs["val"],
+                             "--train-data", root, "--epochs", "50", "--device", str(dev),
+                             "--log-dir", os.path.join(tmp, "probe_log")])
+    scores = {k: (res[k]["acc"], res[k]["micro_f1"]) for k in ("train", "val")}
+    log("features", f"linear probe (context_s4, 50 epochs): acc / micro F1 {scores}, val CI95 "
+        f"{res['val']['acc_ci95']}")
+    if not all(np.isfinite(v) for pair in scores.values() for v in pair):
+        raise AssertionError(f"probe scores {scores}")
+    return {"launches": launches, "tiles_per_s": tiles / seconds, "peak_bytes": peak}
+
+
+def phase_bench_eval(dev):
+    """The port bench in mode ``eval_e2e``, 32 tiles a slide, a few slides."""
+    from msfwsi_tpu_torch import bench
+
+    knobs = {"BENCH_MODE": "eval_e2e", "BENCH_BATCH": "32", "BENCH_ITERS": "3",
+             "BENCH_WARMUP": "1", "BENCH_REPEATS": "2"}
+    _reset_counts()  # every kernel count to 0 just before the path
+    res = bench.main(["--device", str(dev)], env={**os.environ, **knobs})
+    launches = _read_counts()
+    log("bench", f"{res['metric']}: median {res['value']:.1f}, windows {res['rates']}, kernel "
+        f"launches {launches}")
+    _no_launches("bench eval_e2e", launches)
+    if not (math.isfinite(res["value"]) and res["value"] > 0):
+        raise AssertionError(f"bench value {res['value']}")
+    return {**res, "launches": launches}
+
+
 def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out,
-                 ft_out, ft_cli_out):
+                 ft_out, ft_cli_out, zero_paths):
     """One entry per kernel. K1's times are for its work in one main-path
     step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16;
     ``launches`` is phase slice's count, ``launches_by_path`` adds the CLI's
@@ -1008,7 +1295,10 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
         return sum(2 * per_launch[s][key] for s in MAIN_SHAPES)
 
     def finetune_paths(key):
-        return {"finetune": ft_out["launches"][key], "ft_cli": ft_cli_out["launches"][key]}
+        """The counts of the paths that launch no kernel: fine-tuning and
+        the inference paths."""
+        return {"finetune": ft_out["launches"][key], "ft_cli": ft_cli_out["launches"][key],
+                **{path: launches[key] for path, launches in zero_paths.items()}}
 
     t_bytes_dominates = all(per_launch[s]["bound_by"] == "bytes" for s in MAIN_SHAPES)
     err = max(per_launch[s]["max_abs_err"] for s in MAIN_SHAPES)
@@ -1099,10 +1389,17 @@ def main() -> int:
         phase_bench(dev)
         ft_out = phase_finetune(dev)
         ft_cli_out = phase_ft_cli(dev, root, tmp, cli_out["ckpt_dir"], ft_out["pairs_per_s"])
+        eval_out = phase_eval_cli(dev, root, tmp, ft_cli_out, smi_line)
+        pred_out = phase_predict(dev, root, tmp, ft_cli_out, eval_out, smi_line)
+        feat_out = phase_features(dev, root, tmp, cli_out["ckpt_dir"], smi_line)
+        bench_eval = phase_bench_eval(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    zero_paths = {"eval_cli": eval_out["launches"], "eval_cli_device": eval_out["launches_device"],
+                  "predict": pred_out["launches"], "features": feat_out["launches"],
+                  "bench_eval_e2e": bench_eval["launches"]}
     line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows,
-                        cli_out, ft_out, ft_cli_out)
+                        cli_out, ft_out, ft_cli_out, zero_paths)
     print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

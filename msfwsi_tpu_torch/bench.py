@@ -3,6 +3,7 @@
     python -m msfwsi_tpu_torch.bench               # BENCH_MODE=pipeline
     BENCH_MODE=step python -m msfwsi_tpu_torch.bench
     BENCH_MODE=hooknet BENCH_BATCH=64 python -m msfwsi_tpu_torch.bench
+    BENCH_MODE=eval_e2e python -m msfwsi_tpu_torch.bench   # 32 tiles a slide
     python -m msfwsi_tpu_torch.bench --device cpu  # tiny sizes only
 
 Modes, as ``bench.py`` defines them:
@@ -14,13 +15,20 @@ Modes, as ``bench.py`` defines them:
             HookNet train step (Dice, Adam), bf16;
   infer:    the per-slide validation chunk (``make_chunk_stats``): eval
             forward of B = chunk random-normal 256 px view pairs, target
-            argmax and confusion counts kept on the device, bf16.
+            argmax and confusion counts kept on the device, bf16;
+  eval_e2e: the evaluation CLI's datapath end to end on synthetic slides
+            of B = BENCH_BATCH 1024 px tiles: host uint8 views (threaded),
+            then ``validate_slide_hostviews`` at chunk 128 (pinned
+            side-stream uploads, counts on the device, one fetch a slide),
+            the next slide's views made while the current one runs; a
+            step is one slide, bf16.
 
 Metrics: pipeline/step, 224 px tile views per second per device, B * iters
 * (2 + 2K) / seconds / devices (K = 16); hooknet, context/target pairs per
 second, B * iters / seconds; infer, tiles per second, chunk * iters /
-seconds. Each is timed over ``BENCH_ITERS`` steps after ``BENCH_WARMUP``
-and ended by a device sync, as in ``bench.py:106-119,205-290``. The window
+seconds; eval_e2e, source tiles per second, B * slides / seconds. Each is
+timed over ``BENCH_ITERS`` steps after ``BENCH_WARMUP`` and ended by a
+device sync, as in ``bench.py:106-119,142-199,205-290``. The window
 is repeated ``BENCH_REPEATS`` times; earlier lines give each window's rate,
 their median and quartiles and the peak device memory, and the last line is
 ``bench.py``'s JSON with the median as its value (no ``vs_baseline``: that
@@ -30,7 +38,7 @@ Env knobs: BENCH_ARCH, BENCH_BATCH, BENCH_ITERS, BENCH_WARMUP,
 BENCH_REPEATS, BENCH_MODE, and those of ``bench.py`` the port raises on
 unless left at their defaults (BENCH_USE_AC, BENCH_ACCUM,
 BENCH_INTER_OPT, BENCH_INTER_DTYPE, BENCH_REMAT_STAGES,
-BENCH_PACKED_TAIL). Mode ``eval_e2e`` is not ported yet.
+BENCH_PACKED_TAIL).
 """
 
 from __future__ import annotations
@@ -46,16 +54,18 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .data.pipeline import AugConfig, target_keys
+from .data.loader import synthetic_tile_library
+from .data.pipeline import AugConfig, make_seg_val_views_host, target_keys
 from .train import evaluate as EV
 from .train import finetune as FT
 from .train.ssl import SSLConfig, create_ssl_state, make_fused_step, ssl_train_step, view_seed
+from .utils import prefetch_iter
 
 __all__ = ["main"]
 
 IMG_SIZE = 224  # the SSL views' size, as in bench.py; it names the metric
 SEG_SIZE = 256  # the HookNet views' size, as in bench.py; it names the metric
-_NOT_PORTED = {"eval_e2e": 5}
+EVAL_CHUNK = 128  # the evaluation CLI's --val-chunk default
 
 
 def _config(arch: str, batch: int, env) -> SSLConfig:
@@ -149,6 +159,32 @@ def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
     return run, metric, batch, "tiles"
 
 
+def _eval_e2e_mode(arch, tiles_per_slide, dev, seg_size, n_slides):
+    """(run(i) -> metrics, metric name, items per step) of ``eval_e2e``:
+    step i validates slide i % 2 of a synthetic library, its host views
+    made ahead on a background thread (``n_slides`` in all)."""
+    classes = ("a", "b", "c", "d", "e")
+    config = FT.FinetuneConfig(arch=arch, class_names=classes)
+    state = FT.create_finetune_state(config, device=dev)
+    cfg = AugConfig(seg_size=seg_size)  # fp32 views, as bench.py's; the model runs in bf16
+    C = len(classes)
+    stats = EV.make_chunk_stats_hostviews(state.model, C, cfg, amp=True)
+    imgs, masks, slide_ids = synthetic_tile_library(
+        n_slides=2, tiles_per_slide=tiles_per_slide, tile_size=4 * seg_size, num_classes=C,
+        seed=0)
+    slides = [(imgs[slide_ids == s], masks[slide_ids == s]) for s in np.unique(slide_ids)]
+    views = prefetch_iter(make_seg_val_views_host(*slides[i % len(slides)], cfg)
+                          for i in range(n_slides))
+
+    def run(i):
+        micro, _ = EV.validate_slide_hostviews(stats, *next(views), num_classes=C,
+                                               chunk=EVAL_CHUNK, device=dev)
+        return {"loss": micro["f1"]}  # the slide's fetch has synchronized
+
+    metric = f"eval_cli_e2e_source_tiles_per_sec[{arch},{tiles_per_slide}t/slide,hostviews]"
+    return run, metric, tiles_per_slide, "tiles"
+
+
 def main(argv=None, env=os.environ, img_size: int = IMG_SIZE, seg_size: int = SEG_SIZE) -> dict:
     """Run the bench with the ``BENCH_*`` knobs of ``env``; returns the
     last line's fields with each window's rate, the quartiles and the peak
@@ -164,15 +200,15 @@ def main(argv=None, env=os.environ, img_size: int = IMG_SIZE, seg_size: int = SE
     warmup = int(env.get("BENCH_WARMUP", "3"))
     repeats = int(env.get("BENCH_REPEATS", "5"))
     mode = env.get("BENCH_MODE", "pipeline")
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"BENCH_MODE={mode}: not ported yet, ROADMAP.md queue 1 "
-                                  f"item {_NOT_PORTED[mode]}")
-    if mode not in ("pipeline", "step", "hooknet", "infer"):
+    if mode not in ("pipeline", "step", "hooknet", "infer", "eval_e2e"):
         raise ValueError(f"unknown BENCH_MODE {mode!r}")
     dev = resolve_device(args.device)
     rng = np.random.default_rng(0)
     if mode in ("pipeline", "step"):
         run, metric, per_step, unit = _ssl_mode(mode, arch, batch, env, dev, rng, img_size)
+    elif mode == "eval_e2e":
+        run, metric, per_step, unit = _eval_e2e_mode(arch, batch, dev, seg_size,
+                                                     warmup + repeats * iters)
     else:
         run, metric, per_step, unit = _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size)
 

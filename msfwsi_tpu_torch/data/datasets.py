@@ -17,7 +17,9 @@ package's selection exactly:
   * fine-tuning: (image, mask) pairs of the same training rows (threshold
     0.1 for BCSS, 0.7 for PAIP), and the fold's validation slides grouped
     by ``filename`` in first-appearance order, without frac, with BCSS's
-    ``shift`` tiles left out.
+    ``shift`` tiles left out;
+  * inference tools: either side of a fold grouped by slide
+    (:func:`seg_slide_groups`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ __all__ = [
     "bcss_seg_val_slides",
     "paip_seg_samples",
     "paip_seg_val_slides",
+    "seg_slide_groups",
 ]
 
 # bcss.py:13-19
@@ -152,10 +155,7 @@ def bcss_seg_samples(data_path: str, fold: int = 0, threshold: float = 0.1,
 def bcss_seg_val_slides(data_path: str, fold: int = 0,
                         threshold: float = 0.1) -> list[SlideGroup]:
     """The fold's validation slides; ``shift`` tiles left out (``bcss.py:135-136``)."""
-    val = set(BCSS_VAL_SET[fold])
-    rows = [r for r in _read_csv(data_path, "data.csv")
-            if _bcss_slide_code(r["filename"]) in val and "shift" not in r["filename"]]
-    return _slide_groups(rows, threshold)
+    return seg_slide_groups(data_path, "bcss", fold, "val", threshold)
 
 
 def paip_seg_samples(data_path: str, fold: int = 0, threshold: float = 0.7,
@@ -167,8 +167,36 @@ def paip_seg_samples(data_path: str, fold: int = 0, threshold: float = 0.7,
 
 def paip_seg_val_slides(data_path: str, fold: int = 0,
                         threshold: float = 0.7) -> list[SlideGroup]:
-    val = set(PAIP_VAL_SET[fold])
-    rows = [r for r in _read_csv(data_path, "train_data.csv") if r["filename"] in val]
+    """The fold's validation slides (their names are exact entries of
+    ``PAIP_VAL_SET``, so none is a ``shift`` tile)."""
+    return seg_slide_groups(data_path, "paip", fold, "val", threshold)
+
+
+def seg_slide_groups(data_path: str, data_name: str, fold: int = 0, split: str = "val",
+                     threshold: float | None = None) -> list[SlideGroup]:
+    """Slide-grouped tiles of either side of a fold, for the feature and
+    probe tools. ``split="val"`` is the validation contract
+    (:func:`bcss_seg_val_slides` / :func:`paip_seg_val_slides`: ``shift``
+    tiles left out); ``split="train"`` the complement, ``shift`` tiles
+    kept. Thresholds default per dataset: bcss 0.1, paip 0.7."""
+    if split not in ("val", "train"):
+        raise ValueError(f"split must be 'val' or 'train', got {split!r}")
+    if data_name == "bcss":
+        val = set(BCSS_VAL_SET[fold])
+        rows = _read_csv(data_path, "data.csv")
+        in_val = [_bcss_slide_code(r["filename"]) in val for r in rows]
+        threshold = 0.1 if threshold is None else threshold
+    elif data_name == "paip":
+        val = set(PAIP_VAL_SET[fold])
+        rows = _read_csv(data_path, "train_data.csv")
+        in_val = [r["filename"] in val for r in rows]
+        threshold = 0.7 if threshold is None else threshold
+    else:
+        raise ValueError(f"unknown data_name {data_name!r}")
+    want = split == "val"
+    rows = [r for r, v in zip(rows, in_val) if v == want]
+    if want:
+        rows = [r for r in rows if "shift" not in r["filename"]]
     return _slide_groups(rows, threshold)
 
 

@@ -19,8 +19,8 @@ prints, one line each:
     ``step`` (``BENCH_*`` variables apply);
 
 and a last JSON line with all of them and the card's name. The helpers
-also serve ``chip_smoke.py``'s phases "datapath" and "cli", and the tests:
-:func:`write_png` is a PNG writer on zlib and numpy (the port has no PIL).
+also serve ``chip_smoke.py``'s phases "datapath" and "cli", and the tests;
+tiles are written by the data layer's PNG writer (:mod:`..data.png`).
 """
 
 from __future__ import annotations
@@ -32,11 +32,9 @@ import math
 import os
 import shutil
 import statistics
-import struct
 import subprocess
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -45,59 +43,10 @@ import torch
 
 from .. import native, resolve_device
 from ..data.loader import NUM_THREADS
+from ..data.png import write_png
 
-__all__ = ["write_png", "smooth_tiles", "write_bcss_dataset", "write_bcss_masks", "decode_rate",
+__all__ = ["smooth_tiles", "write_bcss_dataset", "write_bcss_masks", "decode_rate",
            "h2d_ms", "cli_argv", "cli_rate", "cli_fill_s", "main"]
-
-_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return struct.pack(">I", len(data)) + kind + data + struct.pack(
-        ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-
-def _filtered(img: np.ndarray, bpp: int, filters: Sequence[int]) -> np.ndarray:
-    """(H, 1 + W*C) rows, each prefixed by its filter type."""
-    H = img.shape[0]
-    raw = img.reshape(H, -1).astype(np.int16)
-    left = np.zeros_like(raw)
-    left[:, bpp:] = raw[:, :-bpp]
-    up = np.zeros_like(raw)
-    up[1:] = raw[:-1]
-    up_left = np.zeros_like(raw)
-    up_left[1:, bpp:] = raw[:-1, :-bpp]
-    p = left + up - up_left
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
-    predictors = (0, left, up, (left + up) >> 1, paeth)
-    types = np.resize(np.asarray(filters, np.uint8), H)
-    out = np.empty((H, 1 + raw.shape[1]), np.uint8)
-    out[:, 0] = types
-    for t in set(types.tolist()):
-        rows = types == t
-        out[rows, 1:] = ((raw[rows] - (predictors[t][rows] if t else 0)) & 0xFF).astype(np.uint8)
-    return out
-
-
-def write_png(path: str, img: np.ndarray, filters: Sequence[int] = (0, 1, 2, 3, 4)) -> None:
-    """Write a uint8 (H, W) or (H, W, C) array, C in 1, 3, 4, to ``path``
-    as an 8-bit non-interlaced PNG with one IDAT, row i filtered with
-    ``filters[i % len(filters)]`` (0 none, 1 sub, 2 up, 3 average, 4
-    Paeth), so one image can carry every filter type."""
-    img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"want a uint8 (H, W[, C]) array, got {img.dtype} {img.shape}")
-    C = 1 if img.ndim == 2 else img.shape[2]
-    if C not in _COLOR_TYPE or any(f not in range(5) for f in filters) or not filters:
-        raise ValueError(f"channels {C} or filters {tuple(filters)} not supported")
-    H, W = img.shape[:2]
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, _COLOR_TYPE[C], 0, 0, 0)
-    idat = zlib.compress(_filtered(img, C, filters).tobytes())
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat)
-                + _chunk(b"IEND", b""))
-
 
 def smooth_tiles(n: int, size: int = 1024, seed: int = 0, device="cpu") -> np.ndarray:
     """(n, size, size, 3) uint8: per tile a smooth sinusoidal colour field
@@ -139,9 +88,11 @@ def write_bcss_masks(root: str, files: Sequence[str], masks: np.ndarray, n_val: 
                      threads: int = NUM_THREADS) -> list[str]:
     """Make a :func:`write_bcss_dataset` directory a fine-tuning one:
     ``masks`` (N, H, W) uint8 as grey ``root/masks/mask_NNNN.png`` and
-    ``data.csv`` rewritten with their ``filename_mask``. The last ``n_val``
-    tiles become one slide of fold 0's validation set (``TCGA-OL-0000``);
-    the others keep their slide codes, outside it. Returns the mask paths."""
+    ``data.csv`` rewritten with their ``filename_mask`` and each BCSS
+    class's share of the mask, ``ratio_masked_{c}_area`` for c in 1-5 (the
+    probe's tile labels). The last ``n_val`` tiles become one slide of fold
+    0's validation set (``TCGA-OL-0000``); the others keep their slide
+    codes, outside it. Returns the mask paths."""
     os.makedirs(os.path.join(root, "masks"), exist_ok=True)
     names = [f"masks/mask_{i:04d}.png" for i in range(len(files))]
     with ThreadPoolExecutor(threads) as pool:
@@ -151,10 +102,12 @@ def write_bcss_masks(root: str, files: Sequence[str], masks: np.ndarray, n_val: 
     n_train = len(files) - n_val
     with open(os.path.join(root, "data.csv"), "w", newline="") as f:
         w = csv.writer(f)
-        w.writerow(["filename", "filename_img", "filename_mask", "ratio_masked_area"])
+        w.writerow(["filename", "filename_img", "filename_mask", "ratio_masked_area",
+                    *(f"ratio_masked_{c}_area" for c in range(1, 6))])
         for i, (img, mask) in enumerate(zip(files, names)):
             slide = f"TCGA-{codes[i % 4]}-{i:04d}" if i < n_train else "TCGA-OL-0000"
-            w.writerow([slide, img, mask, 0.5])
+            shares = [float((masks[i] == c).mean()) for c in range(1, 6)]
+            w.writerow([slide, img, mask, 0.5, *shares])
     return names
 
 

@@ -60,6 +60,8 @@ class MSFWSI(nn.Module):
     def __init__(self, arch: str = "resnet18", scale: int = 4, mask_ratio: float = 0.5,
                  views_shuffled: bool = True):
         super().__init__()
+        self.arch = arch
+        self.scale = scale
         self.K = int(scale**2)
         self.n_keep = int(self.K * (1 - mask_ratio))
         self.views_shuffled = views_shuffled
@@ -76,13 +78,22 @@ class MSFWSI(nn.Module):
         z = tuple(p(f) for p, f in zip(projectors, feats))
         return z, tuple(p(zz) for p, zz in zip(predictors, z))
 
+    def encode_context(self, x):
+        """The 4 pooled stage features of NHWC images through the context
+        encoder alone; no head is touched."""
+        return self.context_encoder(x)
+
+    def encode_target(self, x):
+        """The same through the target encoder."""
+        return self.target_encoder(x)
+
     def forward(self, x1, x2, jigsaw_reverse_idx):
         B = x1[0].shape[0]
         K = self.K
-        context_f1 = self.context_encoder(x1[0])
-        context_f2 = self.context_encoder(x2[0])
-        target_f1 = self.target_encoder(x1[1])
-        target_f2 = self.target_encoder(x2[1])
+        context_f1 = self.encode_context(x1[0])
+        context_f2 = self.encode_context(x2[0])
+        target_f1 = self.encode_target(x1[1])
+        target_f2 = self.encode_target(x2[1])
 
         t1_split = tuple(f.reshape(B, K, -1) for f in target_f1)
         t2_split = tuple(f.reshape(B, K, -1) for f in target_f2)

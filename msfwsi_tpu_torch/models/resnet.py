@@ -14,7 +14,8 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "BasicBlock", "ResNet", "ARCH_SPECS", "get_encoder", "torch_style_init"]
+__all__ = ["BatchNorm", "BasicBlock", "ResNet", "ARCH_SPECS", "feature_dims", "get_encoder",
+           "torch_style_init"]
 
 
 class BatchNorm(nn.Module):
@@ -159,6 +160,15 @@ ARCH_SPECS = {
     "resnet10": (BasicBlock, (1, 1, 1, 1)),
     "resnet18": (BasicBlock, (2, 2, 2, 2)),
 }
+
+
+def feature_dims(arch: str) -> tuple[int, int, int, int]:
+    """Per-stage pooled feature channels of ``arch`` (the block's expansion
+    counted, as ``ResNet.feature_dims``), without building the encoder."""
+    if arch not in ARCH_SPECS:
+        raise ValueError(f"unknown arch {arch!r}; the port has {sorted(ARCH_SPECS)}")
+    e = ARCH_SPECS[arch][0].expansion
+    return (64 * e, 128 * e, 256 * e, 512 * e)
 
 
 def get_encoder(arch: str, **kwargs) -> ResNet:

@@ -1,14 +1,19 @@
-"""Jigsaw geometry of MSF-WSI as pure index math on tensors.
+"""Jigsaw geometry of MSF-WSI as pure index math on tensors, and the prep
+grid's tile geometry.
 
-Port of the SSL subset of ``msfwsi_tpu/ops/geometry.py``; image layout is
-NHWC, as there.
+Port of ``msfwsi_tpu/ops/geometry.py`` (the jigsaw and :class:`TileGrid`);
+image layout is NHWC, as there.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 __all__ = [
+    "TileGrid",
     "batched_blockshaped",
     "invert_permutation",
     "unshuffle_features",
@@ -58,3 +63,62 @@ def reflect_pad_hw(img, pad: int):
     return img.index_select(1, reflect_index(H, pad, img.device)).index_select(
         2, reflect_index(W, pad, img.device)
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGrid:
+    """Grid geometry for cutting a (height, width) slide into fixed tiles
+    (``tools/bcss_prepare.py:36-69``): tiles of ``tile_size`` start at
+    ``(i_h * tile_size + shift_h, i_w * tile_size + shift_w)``; the slide
+    is taken as zero-padded on the bottom and right so that every tile is
+    whole; a shift drops the last row or column when the remainder cannot
+    hold it."""
+
+    height: int
+    width: int
+    tile_size: int
+    shift_h: int = 0
+    shift_w: int = 0
+
+    @property
+    def num_h(self) -> int:
+        # pad_h is always in [1, tile_size]; num_h = (h + pad_h) // tile_size
+        n = (self.height + self.pad_h) // self.tile_size
+        if self.height % self.tile_size < self.shift_h:
+            n -= 1
+        return n
+
+    @property
+    def num_w(self) -> int:
+        n = (self.width + self.pad_w) // self.tile_size
+        if self.width % self.tile_size < self.shift_w:
+            n -= 1
+        return n
+
+    @property
+    def pad_h(self) -> int:
+        return self.tile_size - self.height % self.tile_size
+
+    @property
+    def pad_w(self) -> int:
+        return self.tile_size - self.width % self.tile_size
+
+    def __len__(self) -> int:
+        return self.num_h * self.num_w
+
+    def origin(self, idx: int) -> tuple[int, int]:
+        """Top-left (y, x) of tile ``idx`` (row-major; it may lie past the
+        slide, in the zero padding)."""
+        i_h, i_w = divmod(idx, self.num_w)
+        return i_h * self.tile_size + self.shift_h, i_w * self.tile_size + self.shift_w
+
+    def extract(self, img: np.ndarray, idx: int) -> np.ndarray:
+        """Tile ``idx`` of ``img`` ((H, W) or (H, W, C)), zero-padded past
+        the slide's edge."""
+        y, x = self.origin(idx)
+        sz = self.tile_size
+        py0, py1 = max(0, y), min(y + sz, self.height)
+        px0, px1 = max(0, x), min(x + sz, self.width)
+        patch = np.zeros((sz, sz) + img.shape[2:], img.dtype)
+        patch[0 : py1 - py0, 0 : px1 - px0] = img[py0:py1, px0:px1]
+        return patch

@@ -77,7 +77,8 @@ def save_best_ft_model(log_dir: str, model, epoch: int, arch: str) -> str:
 def load_ft_model(path: str, model, map_location="cpu"):
     """Load a fine-tuned HookNet file (``best_ft_model.pth.tar``, with or
     without ``module.``) into ``model`` in place; returns the model."""
-    sd = {k.removeprefix("module."): v for k, v in load_torch_file(path, map_location).items()}
+    sd = {k.removeprefix("module."): v
+          for k, v in load_torch_file(path, map_location, kind="hooknet").items()}
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -110,22 +111,27 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return os.path.join(ckpt_dir, best[1]) if best else None
 
 
-def _load(path: str, map_location) -> dict:
+_EXPORT_FLAGS = {"ssl": "--arch and --scale", "hooknet": "--arch and --classes"}
+
+
+def _load(path: str, map_location, kind: str = "ssl") -> dict:
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: an Orbax checkpoint of the JAX package, which the port "
-            "does not read. Convert it to a .pth.tar with `python tools/export_torch.py "
-            f"--kind ssl --checkpoint {path} --out <file>.pth.tar` (with the run's --arch "
-            "and --scale)."
+            "does not read (it reads .pth.tar files). Convert it to a .pth.tar with `python "
+            f"tools/export_torch.py --kind {kind} --checkpoint {path} --out <file>.pth.tar` "
+            f"(with the run's {_EXPORT_FLAGS[kind]})."
         )
     obj = torch.load(path, map_location=map_location, weights_only=True)
     return obj if isinstance(obj, dict) else {"state_dict": obj}
 
 
-def load_torch_file(path: str, map_location="cpu") -> dict:
+def load_torch_file(path: str, map_location="cpu", kind: str = "ssl") -> dict:
     """The state dict of a torch checkpoint (its ``state_dict`` entry, or
-    the whole file if it is a bare state dict), on ``map_location``."""
-    obj = _load(path, map_location)
+    the whole file if it is a bare state dict), on ``map_location``;
+    ``kind`` (``ssl`` or ``hooknet``) names the model in the error an
+    Orbax directory raises."""
+    obj = _load(path, map_location, kind)
     return obj.get("state_dict", obj)
 
 

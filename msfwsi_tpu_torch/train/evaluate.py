@@ -37,6 +37,7 @@ __all__ = [
     "validate_slide_u8",
     "validate_slide_hostviews",
     "validate_slides",
+    "validate",
     "SlideScores",
 ]
 
@@ -189,8 +190,10 @@ class SlideScores:
         self.class_names = list(class_names)
         self.micro = {"f1": [], "iou": [], "acc": []}
         self.per_class = {m: {c: [] for c in self.class_names} for m in ("f1", "iou", "acc")}
+        self.counts = []  # per slide, its (4, C) int64 tp/fp/fn/tn sums
 
     def update(self, micro: dict, sums):
+        self.counts.append(np.stack(sums))
         for k, v in micro.items():
             self.micro[k].append(v)
         raw = {"f1": f1_score(*sums), "iou": iou_score(*sums), "acc": accuracy(*sums)}
@@ -222,3 +225,20 @@ def validate_slides(stats_fn: Callable, slides, val_views: str, class_names,
         if on_slide is not None:
             on_slide(i, micro)
     return scores
+
+
+def validate(model, slides, class_names, chunk: int = 128, stats_fn: Callable | None = None,
+             amp: bool = False, device="cuda") -> dict:
+    """One validation pass over ``slides``, each ``(ctx, tgt, masks)``:
+    normalized context and target views (T, s, s, 3) and the target masks
+    (T, s, s). ``stats_fn`` is a :func:`make_chunk_stats` function, built
+    from ``model`` when not given. Returns the summary: the micro scores'
+    means over slides and the per-class means."""
+    scores = SlideScores(class_names)
+    num_classes = len(scores.class_names)
+    stats_fn = stats_fn or make_chunk_stats(model, num_classes, amp)
+    for ctx, tgt, masks in slides:
+        micro, sums = _run_chunked_stats(
+            stats_fn, (ctx, tgt, np.asarray(masks).astype(np.int32)), num_classes, chunk, device)
+        scores.update(micro, sums)
+    return scores.summary()

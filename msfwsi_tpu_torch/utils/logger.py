@@ -51,9 +51,11 @@ def setup_logger(
 
 
 def close_logger(logger: logging.Logger) -> None:
-    """Remove and close every handler of ``logger`` and forget the cached
-    set-ups."""
+    """Remove and close every handler of ``logger``, let its records reach
+    the root logger again (as before :func:`setup_logger`), and forget the
+    cached set-ups."""
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
+    logger.propagate = True
     setup_logger.cache_clear()

@@ -326,5 +326,5 @@ def test_bench_step_mode_prints_bench_py_line(capsys):
         bench.main(["--device", "cpu"], env={**env, "BENCH_MODE": mode}, seg_size=64)
         last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert last["metric"] == metric and np.isfinite(last["value"]) and last["value"] > 0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        bench.main(["--device", "cpu"], env={"BENCH_MODE": "eval_e2e"})
+    with pytest.raises(ValueError, match="unknown BENCH_MODE"):
+        bench.main(["--device", "cpu"], env={"BENCH_MODE": "no_such_mode"})

@@ -20,8 +20,8 @@ from msfwsi_tpu_torch import native
 from msfwsi_tpu_torch.data import datasets as D
 from msfwsi_tpu_torch.data import loader as L
 from msfwsi_tpu_torch.data import packed as PK
+from msfwsi_tpu_torch.data.png import write_png
 from msfwsi_tpu_torch.diag import datapath as DP
-from msfwsi_tpu_torch.diag.datapath import write_png
 from msfwsi_tpu_torch.utils import misc as M
 
 torch.set_num_threads(2)

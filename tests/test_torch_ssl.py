@@ -214,6 +214,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import msfwsi_tpu_torch.diag.datapath, msfwsi_tpu_torch.ssl_finetune\n"
         "import msfwsi_tpu_torch.models.hooknet, msfwsi_tpu_torch.ops.metrics\n"
         "import msfwsi_tpu_torch.train.finetune, msfwsi_tpu_torch.train.evaluate\n"
+        "import msfwsi_tpu_torch.train.predict, msfwsi_tpu_torch.train.features\n"
+        "import msfwsi_tpu_torch.data.slides, msfwsi_tpu_torch.data.png\n"
+        "import msfwsi_tpu_torch.evaluate, msfwsi_tpu_torch.predict\n"
+        "import msfwsi_tpu_torch.extract_features, msfwsi_tpu_torch.linear_probe\n"
+        "import msfwsi_tpu_torch.dataset_stats, msfwsi_tpu_torch.parity_check\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -11,6 +11,9 @@ the structure of ``msfwsi_tpu_torch.data.pipeline.sample_ssl_views``.
 from __future__ import annotations
 
 import functools
+import importlib.util
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -115,3 +118,15 @@ def state_numpy(module) -> dict:
     BatchNorm's running stats) reach a JAX computation still reading the
     buffer asynchronously."""
     return {k: w.detach().numpy().copy() for k, w in module.state_dict().items()}
+
+
+def jax_tool(name: str):
+    """The JAX package's CLI module ``tools/<name>.py``, imported from its
+    file (``tools/`` put on ``sys.path`` for its ``_common`` imports)."""
+    tools = Path(__file__).resolve().parents[1] / "tools"
+    if str(tools) not in sys.path:
+        sys.path.insert(0, str(tools))
+    spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", tools / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
