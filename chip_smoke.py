@@ -63,8 +63,8 @@ Phases, each logged with a timestamp:
 11. bench: the port bench (``python -m msfwsi_tpu_torch.bench``) in mode
    ``step`` for a few iterations;
 12. finetune: one fp32 fine-tuning step (resnet10, 64 px views, b4) on the
-   card against the same inputs, view parameters and weights on the CPU,
-   and the decoder's convolutions taking bf16 under autocast; then the
+   card against the same inputs, view parameters and weights on the CPU
+   (the loss, and the gradients parameter by parameter), and the decoder's convolutions taking bf16 under autocast; then the
    fused fine-tuning step at full width (resnet18 HookNet, b64, 256 px
    context and target views from (64,1024,1024,3) uint8 tiles and
    (64,1024,1024) masks in 6 classes, bf16 amp, Dice lam 1, Adam) for 2
@@ -103,8 +103,30 @@ Phases, each logged with a timestamp:
    with finite scores; tiles/s and peak memory; no kernel launch;
 17. bench eval_e2e: the port bench in mode ``eval_e2e`` at 32 tiles a
    slide for a few slides; no kernel launch;
-18. the kernels JSON line (each kernel's count on every path, 0 on the
-   fine-tuning and inference paths), then the result line.
+18. prepare: ``make_synthetic_slides.main`` (3 BCSS region PNGs at 4096
+   px, institutions OL, A1, A2) and ``bcss_prepare.main`` at the recipe's
+   ``-s 1024 --overlap 512``, on a machine without PIL: ``data.csv``'s
+   columns, all four variants, every tile and mask decoded by the port's
+   decoder, masks in 0-5 and none empty, unmasked pixels 0; tiles/s; then
+   ``ssl_train.main`` on the prepared root (resnet18, b32, amp, fold 0, 1
+   epoch of 2 steps): a finite loss, K1 4 launches a step;
+19. serving: ``export_serving.main`` on phase "ft_cli"'s best model at the
+   JAX tool's defaults (resnet18, chunk 128, 256 px, ``--amp``), the
+   artifact loaded on the card and run on one 128-tile chunk of the
+   validation slide's fp32 views: int32, equal to the eager model's argmax
+   but where its two largest logits lie within bf16's 2e-2 (counted);
+   tiles/s of the artifact and of the eager forward, peak memory; no
+   kernel launch;
+20. encoders: resnet50 and resnext50_32x4d in fp32 (b2, 64 px views) on
+   the card against the CPU: with every residual branch active, eval-mode
+   features and gradients parameter by parameter; a train step's loss and
+   running stats (those against a float64 forward); the fused SSL step at resnet50's full width (b8, scale 4, bf16 amp, 2
+   warm-up and 3 timed steps): finite loss, K1 4 launches a step, tile
+   views/s, peak memory and its part held before the first step; one fused
+   HookNet fine-tuning step at resnext50_32x4d (b16, 256 px), no launch;
+21. the kernels JSON line (each kernel's count on every path: 0 on the
+   fine-tuning, inference and serving paths, K1's on the SSL runs), then
+   the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -125,7 +147,7 @@ import tempfile
 import time
 
 # A hang must end in a traceback well before any outer time limit: the
-# whole run, build and profile included, takes about two minutes on an H100.
+# whole run, build and profile included, takes about four minutes on an H100.
 WATCHDOG_S = 480
 T0 = time.perf_counter()
 
@@ -135,6 +157,15 @@ EDGE_SHAPES = {
     "separable_blur_nhwc": ((1, 12, 12, 3), (2, 13, 29, 3), (3, 40, 72, 3), (2, 1000, 1016, 3)),
 }
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# fp32 backwards, card against CPU: the worst parameter's gradient distance
+# relative to its norm. On an H100 4.3e-3 (resnet10 HookNet train step),
+# 4.4e-3 (resnet50 SSL, eval mode) and 1.2e-4 (resnext50_32x4d), each at a
+# BatchNorm bias, whose gradient is a sum that cancels; the CPU's own stand
+# up to 3.7e-3 from a float64 backward's. A wrong backward is off by O(1).
+GRAD_BOUND = 2e-2
+# the eval-mode pooled features of those encoders, relative to their largest
+# value: 2.4e-6 at most on an H100 (the CPU's stand 9.9e-7 from float64)
+ENC_FEATURE_BOUND = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -353,9 +384,12 @@ def profile_steps(step, steps):
         log("profile", f"{us / 1e3 / steps:9.3f} ms/step {100 * us / total:6.2f}%  {name[:110]}")
 
 
-def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, traced=3):
+def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, traced=3,
+                name="slice"):
     """The main path: ``make_fused_step`` at full width, then ``traced``
-    steps under the profiler. Returns its numbers."""
+    steps under the profiler (none for 0). Returns its numbers, with the
+    memory still held after the timed steps (``held_bytes``: weights, Adam's
+    state, gradients)."""
     import numpy as np
     import torch
 
@@ -381,7 +415,7 @@ def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, trac
         if tuple(v.shape) != shape or (v.is_floating_point() and not bool(v.isfinite().all())):
             raise AssertionError(f"view {k}: shape {tuple(v.shape)} (want {shape}) or non-finite")
     del views
-    log("slice", f"views ok: {', '.join(f'{k} {s}' for k, s in want.items())}")
+    log(name, f"views ok: {', '.join(f'{k} {s}' for k, s in want.items())}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -389,7 +423,7 @@ def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, trac
     t_start = time.perf_counter()
     for i in range(warmup):
         loss = float(step(state, tiles, gen)["loss"])
-        log("slice", f"warm-up step {i + 1}: loss {loss:.6f}")
+        log(name, f"warm-up step {i + 1}: loss {loss:.6f}")
     t0 = time.perf_counter()
     for _ in range(steps):
         metrics = step(state, tiles, gen)
@@ -397,19 +431,21 @@ def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, trac
     dt = time.perf_counter() - t0
     launches = K.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
     total = warmup + steps
     views_per_s = batch * steps * (2 + 2 * K_tiles) / dt
-    log("slice", f"{steps} timed steps in {dt:.3f} s ({1e3 * dt / steps:.1f} ms/step, "
-        f"{total} steps {time.perf_counter() - t_start:.1f} s): loss {loss:.6f}, "
+    log(name, f"{arch} b{batch}: {steps} timed steps in {dt:.3f} s ({1e3 * dt / steps:.1f} "
+        f"ms/step, {total} steps {time.perf_counter() - t_start:.1f} s): loss {loss:.6f}, "
         f"{views_per_s:.1f} tile views/s/device, peak memory {peak / 2**30:.2f} GiB, "
         f"blur_or_sharpen_fused launches {launches}")
     if not math.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")
     if launches != 4 * total:
         raise AssertionError(f"{launches} kernel launches in {total} steps, want 4 per step")
-    profile_steps(lambda: step(state, tiles, gen), traced)
+    if traced:
+        profile_steps(lambda: step(state, tiles, gen), traced)
     return {"launches": launches, "steps": total, "loss": loss, "views_per_s": views_per_s,
-            "step_ms": 1e3 * dt / steps, "peak_bytes": peak}
+            "step_ms": 1e3 * dt / steps, "peak_bytes": peak, "held_bytes": held}
 
 
 def blur_bound_ms(img, kern, ksize) -> tuple[float, str]:
@@ -802,19 +838,37 @@ def _read_counts() -> dict:
     return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, "probe": P.LAUNCHES}
 
 
-def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
-    """The fine-tuning step: a small fp32 step on the card against the CPU,
-    then the fused step at full width and under the profiler. Returns its
-    numbers."""
+def grad_distances(card, cpu, exact) -> dict:
+    """The relative gradient distances ||a - b|| / ||b|| of three copies of
+    one model after their backward: the card's from the CPU's, the CPU's
+    from a float64 backward's and the card's from it, each as (the worst
+    parameter's distance, its name)."""
+    grads = [{k: p.grad.detach().cpu().double() for k, p in m.named_parameters()
+              if p.grad is not None} for m in (card, cpu, exact)]
+    if not grads[0].keys() == grads[1].keys() == grads[2].keys():
+        raise AssertionError("the copies' parameters with a gradient differ")
+    out = {}
+    for pair, (a, b) in {"card-cpu": (0, 1), "cpu-f64": (1, 2), "card-f64": (0, 2)}.items():
+        out[pair] = max((float((grads[a][k] - g).norm() / g.norm().clamp_min(1e-30)), k)
+                        for k, g in grads[b].items())
+    return out
+
+
+def finetune_step_check(dev):
+    """A small fp32 fine-tuning step (resnet10 HookNet, b4, 64 px) on the
+    card against the CPU (TF32 off): the loss within 1e-3 relative, and
+    the gradients, parameter by parameter, within ``GRAD_BOUND`` of the
+    CPU's relative to their norm; a float64 backward's distance from the
+    CPU's is logged beside it. Returns the card's model after the step."""
     import copy
 
     import numpy as np
     import torch
 
-    from msfwsi_tpu_torch.data.pipeline import AugConfig, sample_seg_train_views
+    from msfwsi_tpu_torch.data.pipeline import (AugConfig, make_seg_train_views,
+                                                sample_seg_train_views)
     from msfwsi_tpu_torch.train import finetune as FT
 
-    # a small step, card against CPU (TF32 off)
     config = FT.FinetuneConfig(arch="resnet10", batch_size=4, amp=False)
     aug = AugConfig(seg_size=64)
     rng = np.random.default_rng(2)
@@ -823,6 +877,7 @@ def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
     params = sample_seg_train_views(torch.Generator().manual_seed(2), 4, aug)
     cpu_state = FT.create_finetune_state(config, device="cpu")
     dev_state = FT.create_finetune_state(config, device=dev, model=copy.deepcopy(cpu_state.model))
+    exact = copy.deepcopy(cpu_state.model).double().train()
     old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -833,18 +888,33 @@ def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
         loss_cpu, loss_dev = float(m_cpu["loss"]), float(m_dev["loss"])
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
-    moved = max(float((a.cpu() - b).abs().max()) for a, b in zip(
-        dev_state.model.state_dict().values(), cpu_state.model.state_dict().values()))
+    (ctx, tgt), (cm, tm) = make_seg_train_views(imgs, masks, aug, None, params=params)
+    batch64 = {"context": ctx.double(), "target": tgt.double(), "context_mask": cm,
+               "target_mask": tm}
+    FT.finetune_loss_fn(exact, batch64, config.lam, config.num_fg)[0].backward()
+    grads = grad_distances(dev_state.model, cpu_state.model, exact)
     log("finetune", f"fp32 step, resnet10 b4 64 px: loss card {loss_dev:.8f}, cpu {loss_cpu:.8f}; "
-        f"weights and stats after it differ by at most {moved:.3g} "
-        f"(2 lr = {2 * config.init_lr:.3g})")
+        f"worst relative gradient distance (parameter): {grads} (card-cpu bound "
+        f"{GRAD_BOUND:g})")
     if not (math.isfinite(loss_dev) and math.isclose(loss_dev, loss_cpu, rel_tol=1e-3)):
         raise AssertionError(f"fine-tuning loss on the card {loss_dev} vs the CPU {loss_cpu}")
-    if not moved <= 2 * config.init_lr + 1e-4:
-        raise AssertionError(f"weights after one step differ by {moved} between card and CPU")
+    if not grads["card-cpu"][0] <= GRAD_BOUND:
+        raise AssertionError(f"fine-tuning gradients differ between card and CPU: {grads}")
+    return dev_state.model
+
+
+def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
+    """The fine-tuning step: ``finetune_step_check``, then the fused step at
+    full width and under the profiler. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig
+    from msfwsi_tpu_torch.train import finetune as FT
+
+    model = finetune_step_check(dev)
     # under amp every decoder convolution takes bf16, as at dtype bf16 in JAX
     seen = []
-    model = dev_state.model
     hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(str(args[0].dtype)))
              for name, m in model.named_modules()
              if ".decoder." in f".{name}." and isinstance(m, torch.nn.Conv2d)]
@@ -856,7 +926,7 @@ def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
     log("finetune", f"decoder convolution inputs under autocast: {sorted(set(seen))}")
     if sorted(set(seen)) != ["torch.bfloat16"]:
         raise AssertionError(f"decoder convolutions under bf16 autocast take {sorted(set(seen))}")
-    del cpu_state, dev_state, model
+    del model
 
     # the main path at full width
     config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True)
@@ -1278,8 +1348,283 @@ def phase_bench_eval(dev):
     return {**res, "launches": launches}
 
 
+def phase_prepare(dev, tmp, smi_line):
+    """Data preparation on the card's machine, which has no PIL: synthetic
+    BCSS region PNGs (3 slides at 4096 px), ``bcss_prepare`` at the
+    recipe's ``-s 1024 --overlap 512``, every tile and mask read back
+    through the port's decoder, then ``ssl_train`` on the prepared root
+    (resnet18, b32, amp, fold 0, 1 epoch of 2 steps). Returns its
+    numbers."""
+    import csv
+
+    import numpy as np
+
+    from msfwsi_tpu_torch import bcss_prepare, make_synthetic_slides, native, ssl_train
+    from msfwsi_tpu_torch.data.prepare import CSV_COLUMNS
+    from msfwsi_tpu_torch.diag import datapath as DP
+
+    raw, root = os.path.join(tmp, "bcss_raw"), os.path.join(tmp, "bcss_prep")
+    t = time.perf_counter()
+    names = make_synthetic_slides.main(["-o", raw, "--slides", "3", "--size", "4096"])
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    shape = bcss_prepare.main(["-p", raw, "-o", root, "-s", "1024", "--overlap", "512"])
+    prep_s = time.perf_counter() - t
+    with open(os.path.join(root, "data.csv"), newline="") as f:
+        header, *rows = list(csv.reader(f))
+    if header != CSV_COLUMNS or (len(rows), len(header)) != shape:
+        raise AssertionError(f"data.csv: header {header}, {len(rows)} rows, CLI said {shape}")
+    variants = {r[2].removeprefix(n) for r in rows for n in names if r[2].startswith(n)}
+    if variants != {"", "_shiftW_512", "_shiftH_512", "_shiftHW_512"}:
+        raise AssertionError(f"shift variants {sorted(variants)}")
+    imgs = native.decode_batch([os.path.join(root, r[0]) for r in rows], 1024, 1024, 3)
+    masks = native.decode_batch([os.path.join(root, r[1]) for r in rows], 1024, 1024, 1)
+    empty = int((~masks.reshape(len(rows), -1).any(axis=1)).sum())
+    top = int(masks.max())
+    unmasked_lit = bool(imgs[masks == 0].any())
+    del imgs, masks
+    log("prepare", f"{len(names)} synthetic 4096 px slides in {gen_s:.1f} s; bcss_prepare "
+        f"-s 1024 --overlap 512: {shape[0]} tiles and masks in {prep_s:.1f} s, "
+        f"{shape[0] / prep_s:.1f} tiles/s (decode, remap, cut, PNG writes on threads) on "
+        f"{smi_line}; every one decoded by the port's decoder; masks in 0-{top}, {empty} empty; "
+        f"variants {sorted(variants)}")
+    if empty or top > 5 or unmasked_lit:
+        raise AssertionError(f"{empty} empty masks, largest class {top}, unmasked pixels lit "
+                             f"{unmasked_lit}")
+    _reset_counts()  # every kernel count to 0 just before the path
+    t = time.perf_counter()
+    res = ssl_train.main(DP.cli_argv(root, os.path.join(tmp, "prep_logs"), epochs=1, extra=(
+        "--steps-per-epoch", "2", "--fold", "0")))
+    train_s = time.perf_counter() - t
+    launches = _read_counts()
+    e = res["epochs"][0]
+    log("prepare", f"ssl_train on the prepared tiles (fold 0, resnet18 b32 amp): loss "
+        f"{e['loss']:.6f} over {e['steps']} steps, {train_s:.1f} s for the run, kernel launches "
+        f"{launches}")
+    if not (math.isfinite(e["loss"]) and e["steps"] == 2):
+        raise AssertionError(f"ssl_train on the prepared tiles: {e}")
+    if launches != {"K1": 4 * e["steps"], "K2": 0, "probe": 0}:
+        raise AssertionError(f"kernel launches {launches}, want K1 4 a step and no other")
+    return {"launches": launches, "tiles": shape[0], "gen_s": gen_s, "prep_s": prep_s,
+            "train_s": train_s}
+
+
+def phase_serving(dev, root, tmp, ft_cli_out, smi_line):
+    """The serving export of phase "ft_cli"'s best model at the JAX tool's
+    defaults (resnet18, chunk 128, 256 px, ``--amp``), loaded on the card
+    and run on one 128-tile chunk of the validation slide's views (its 16
+    tiles 8 times) against the eager model. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch import export_serving, native
+    from msfwsi_tpu_torch.data import datasets as D
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, _to_float, make_seg_val_views_host
+    from msfwsi_tpu_torch.diag.timing import cuda_time_ms
+    from msfwsi_tpu_torch.models.hooknet import HookNet
+    from msfwsi_tpu_torch.ops import augment as A
+    from msfwsi_tpu_torch.train import checkpoint as C
+    from msfwsi_tpu_torch.train import serving as SV
+
+    weights = os.path.join(ft_cli_out["best_dir"], C.BEST_FT_MODEL)
+    out = os.path.join(tmp, "hooknet.pt2")
+    t = time.perf_counter()
+    export_serving.main(["--checkpoint", weights, "--out", out, "--amp", "--device", str(dev)])
+    export_s = time.perf_counter() - t
+    group = D.bcss_seg_val_slides(root)[0]
+    imgs = native.decode_batch([os.path.join(root, s.img) for s in group.samples], 1024, 1024, 3)
+    masks = native.decode_batch([os.path.join(root, s.mask) for s in group.samples], 1024, 1024,
+                                1)
+    cfg = AugConfig(seg_size=256)  # fp32 views, as the evaluation builds them
+    ctx_u8, tgt_u8, _ = make_seg_val_views_host(imgs, masks, cfg)
+    ctx, tgt = (A.normalize(_to_float(torch.from_numpy(np.concatenate([v] * 8)).to(dev)),
+                            cfg.mean, cfg.std) for v in (ctx_u8, tgt_u8))
+    model = C.load_ft_model(weights, HookNet(arch="resnet18", classes=6)).to(dev).eval()
+
+    def eager():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return model(ctx, tgt)[1].float()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    infer = SV.load_serving_artifact(out, device=dev)
+    got = infer(ctx, tgt)
+    launches = _read_counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    logits = eager()
+    want = logits.argmax(dim=-1).to(torch.int32)
+    top2 = logits.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 2e-2
+    differ = got != want
+    n_near, n_diff, n_far = (int(x.sum()) for x in (near, differ, differ & ~near))
+    ms_art = cuda_time_ms(lambda: infer(ctx, tgt), reps=10)
+    ms_eager = cuda_time_ms(eager, reps=10)
+    log("serving", f"export_serving (resnet18, chunk 128, 256 px, --amp) in {export_s:.1f} s; "
+        f"artifact on a 128-tile chunk: {got.dtype} {tuple(got.shape)}, {n_diff} of "
+        f"{got.numel()} pixels differ from the eager argmax, {n_far} of them outside the "
+        f"{n_near} near ties (eager top-two logits within bf16's 2e-2); {128e3 / ms_art:.1f} "
+        f"tiles/s ({ms_art:.3f} ms a chunk) against the eager forward's {128e3 / ms_eager:.1f} "
+        f"({ms_eager:.3f} ms) on {smi_line}; peak memory {peak / 2**30:.2f} GiB; kernel "
+        f"launches {launches}")
+    _no_launches("serving", launches)
+    if got.dtype != torch.int32 or tuple(got.shape) != (128, 256, 256) or n_far:
+        raise AssertionError(f"artifact output {got.dtype} {tuple(got.shape)}, {n_far} pixels "
+                             "differ from the eager argmax outside near ties")
+    return {"launches": launches, "tiles_per_s": 128e3 / ms_art,
+            "eager_tiles_per_s": 128e3 / ms_eager, "peak_bytes": peak, "differ": n_diff,
+            "near": n_near}
+
+
+def encoder_step_check(dev, arch) -> dict:
+    """``arch``'s SSL model in fp32 (b2, 64 px views) on the card against
+    the CPU, TF32 off. First a copy whose zero-init residual branches have
+    their ``bn3`` weights drawn from U(0.5, 1.5), so that every convolution
+    (the grouped 3x3 too) gets a gradient, in eval mode, where each
+    BatchNorm is an affine map: the pooled features within
+    ``ENC_FEATURE_BOUND`` of the CPU's relative to their largest value, and
+    the gradients, parameter by parameter, within ``GRAD_BOUND`` of the
+    CPU's relative to their norm. Then a train step of the model as drawn:
+    its loss within 5e-3, the train-mode bound of
+    ``tests/test_torch_models.py``, and its running stats no further from a
+    float64 forward's than twice the CPU's are. That step normalizes by 2
+    samples of a few pixels, which amplifies fp32 rounding by mean/std, so
+    its gradients are not compared: on the CPU they stand up to 26% from a
+    float64 backward's. The train-mode BatchNorm backward is held by
+    ``finetune_step_check``. Returns the measured distances."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, make_ssl_views, sample_ssl_views
+    from msfwsi_tpu_torch.train.ssl import (SSLConfig, create_ssl_state, ssl_loss_fn,
+                                            ssl_train_step)
+
+    aug = AugConfig(img_size=64, grid=2, tile_px=64)
+    tiles = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3),
+                                                                 np.uint8))
+    params = sample_ssl_views(torch.Generator().manual_seed(3), 2, (128, 128), aug)
+    config = SSLConfig(arch=arch, scale=2, batch_size=2, amp=False)
+    cpu_state = create_ssl_state(config, device="cpu")
+    dev_state = create_ssl_state(config, device=dev, model=copy.deepcopy(cpu_state.model))
+    exact = copy.deepcopy(cpu_state.model).double()
+    batch = make_ssl_views(tiles, aug, params=params, shuffle_views=config.shuffle_views)
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    active = copy.deepcopy(cpu_state.model).eval()
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(3)
+        for name, p in active.named_parameters():
+            if name.endswith(".bn3.weight"):
+                p.uniform_(0.5, 1.5, generator=gen)
+    models = (copy.deepcopy(active).to(dev), active, copy.deepcopy(active).double())
+    batches = (_to(batch, dev), batch, batch64)
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for m, b in zip(models, batches):
+            ssl_loss_fn(m, b, config.fuser_weights)[0].backward()
+        grads = grad_distances(*models)
+        with torch.no_grad():
+            feats = [[f.cpu().double() for f in m.encode_context(b["context1"])]
+                     for m, b in zip(models, batches)]
+        # the running stats of a float64 train-mode forward
+        with torch.no_grad():
+            ssl_loss_fn(exact.train(), batch64, config.fuser_weights)
+        loss_cpu = float(ssl_train_step(cpu_state, batch, config.fuser_weights)["loss"])
+        loss_dev = float(ssl_train_step(dev_state, batches[0], config.fuser_weights)["loss"])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    err, err64 = (max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(x, y))
+                  for x, y in ((feats[0], feats[1]), (feats[1], feats[2])))
+    got = {k: v.cpu().double() for k, v in dev_state.model.state_dict().items()}
+    cpu_sd = cpu_state.model.state_dict()
+    stats = {k: v for k, v in exact.named_buffers() if k.endswith(("_mean", "_var"))}
+
+    def rel(sd):
+        """The largest error against the float64 stats, relative where a
+        stat exceeds 1, absolute below (the heads' means lie near 0)."""
+        return max(float((sd[k].double() - v).abs().max() / v.abs().max().clamp_min(1))
+                   for k, v in stats.items())
+
+    log("encoders", f"{arch} fp32, b2 64 px, eval mode with every branch active: pooled "
+        f"features card vs CPU {err:.3g} relative to their largest (bound "
+        f"{ENC_FEATURE_BOUND:g}; CPU vs float64 {err64:.3g}); worst relative gradient distance "
+        f"(parameter): {grads} (card-cpu bound {GRAD_BOUND:g}). Train step: loss card "
+        f"{loss_dev:.8f}, cpu {loss_cpu:.8f} (bound 5e-3, tests/test_torch_models.py's for "
+        f"train-mode outputs); running stats from a float64 forward: card {rel(got):.3g}, CPU "
+        f"{rel(cpu_sd):.3g} (relative above 1; the card held to twice the CPU's)")
+    if not err <= ENC_FEATURE_BOUND:
+        raise AssertionError(f"{arch} features differ between card and CPU by {err}")
+    if not grads["card-cpu"][0] <= GRAD_BOUND:
+        raise AssertionError(f"{arch} eval-mode gradients: {grads}")
+    if not (math.isfinite(loss_dev) and abs(loss_dev - loss_cpu) <= 5e-3):
+        raise AssertionError(f"{arch} loss on the card {loss_dev} vs the CPU {loss_cpu}")
+    if not rel(got) <= 2 * rel(cpu_sd) + 1e-6:
+        raise AssertionError(f"{arch} running stats {rel(got)} from a float64 forward, "
+                             f"the CPU's {rel(cpu_sd)}")
+    return {"features": (err, err64), "grads": grads, "stats": (rel(got), rel(cpu_sd)),
+            "loss": (loss_dev, loss_cpu)}
+
+
+def phase_encoders(dev, smi_line):
+    """The Bottleneck encoders: ``encoder_step_check`` of resnet50 and
+    resnext50_32x4d, then the fused SSL step at resnet50's full width (b8,
+    scale 4, bf16 amp) and one fused HookNet fine-tuning step at
+    resnext50_32x4d (b16, 256 px). Returns the counts of the SSL and
+    fine-tuning paths and the numbers."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig
+    from msfwsi_tpu_torch.train import finetune as FT
+
+    for arch in ("resnet50", "resnext50_32x4d"):
+        encoder_step_check(dev, arch)
+
+    _reset_counts()  # every kernel count to 0 just before the path
+    ssl = phase_slice(dev, batch=8, arch="resnet50", warmup=2, steps=3, traced=0,
+                      name="encoders")
+    ssl_launches = _read_counts()
+    act = ssl["peak_bytes"] - ssl["held_bytes"]
+    log("encoders", f"resnet50 SSL b8: {ssl['views_per_s']:.1f} tile views/s on {smi_line}; "
+        f"peak {ssl['peak_bytes'] / 2**30:.2f} GiB = {ssl['held_bytes'] / 2**30:.2f} GiB held "
+        f"between steps (weights, Adam, gradients) + {act / 2**30:.2f} GiB within a step; b32 "
+        f"would need ~{(ssl['held_bytes'] + 4 * act) / 2**30:.1f} GiB if the part within a "
+        f"step scales with the batch; kernel launches {ssl_launches}")
+    if ssl_launches["K2"] or ssl_launches["probe"]:
+        raise AssertionError(f"the resnet50 SSL step launched {ssl_launches}")
+    torch.cuda.empty_cache()
+
+    config = FT.FinetuneConfig(arch="resnext50_32x4d", batch_size=16, amp=True)
+    rng = np.random.default_rng(config.seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (16, 1024, 1024, 3), np.uint8)).to(dev)
+    masks = torch.from_numpy(rng.integers(0, config.num_classes, (16, 1024, 1024),
+                                          np.uint8)).to(dev)
+    state = FT.create_finetune_state(config, device=dev)
+    step = FT.make_fused_finetune_step(config, AugConfig(compute_dtype="bfloat16"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    t = time.perf_counter()
+    loss = float(step(state, imgs, masks, gen)["loss"])
+    ft_s = time.perf_counter() - t
+    ft_launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("encoders", f"resnext50_32x4d HookNet fine-tuning step b16 256 px: loss {loss:.6f}, "
+        f"{1e3 * ft_s:.1f} ms (the first step), peak memory {peak / 2**30:.2f} GiB, kernel "
+        f"launches {ft_launches}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite resnext50 fine-tuning loss {loss}")
+    _no_launches("encoders fine-tuning", ft_launches)
+    return {"ssl_launches": ssl_launches, "ft_launches": ft_launches,
+            "views_per_s": ssl["views_per_s"], "peak_bytes": ssl["peak_bytes"]}
+
+
 def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out,
-                 ft_out, ft_cli_out, zero_paths):
+                 ft_out, ft_cli_out, other_paths):
     """One entry per kernel. K1's times are for its work in one main-path
     step: 2 launches at (32,224,224,3) and 2 at (32,1024,1024,3), bf16;
     ``launches`` is phase slice's count, ``launches_by_path`` adds the CLI's
@@ -1295,10 +1640,11 @@ def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_ro
         return sum(2 * per_launch[s][key] for s in MAIN_SHAPES)
 
     def finetune_paths(key):
-        """The counts of the paths that launch no kernel: fine-tuning and
-        the inference paths."""
+        """The counts of the later paths: fine-tuning, inference, serving
+        and the encoders' paths (0 but for K1 on the SSL runs among them:
+        ``prepare_cli``, ``encoders_ssl``)."""
         return {"finetune": ft_out["launches"][key], "ft_cli": ft_cli_out["launches"][key],
-                **{path: launches[key] for path, launches in zero_paths.items()}}
+                **{path: launches[key] for path, launches in other_paths.items()}}
 
     t_bytes_dominates = all(per_launch[s]["bound_by"] == "bytes" for s in MAIN_SHAPES)
     err = max(per_launch[s]["max_abs_err"] for s in MAIN_SHAPES)
@@ -1393,13 +1739,19 @@ def main() -> int:
         pred_out = phase_predict(dev, root, tmp, ft_cli_out, eval_out, smi_line)
         feat_out = phase_features(dev, root, tmp, cli_out["ckpt_dir"], smi_line)
         bench_eval = phase_bench_eval(dev)
+        prep_out = phase_prepare(dev, tmp, smi_line)
+        serve_out = phase_serving(dev, root, tmp, ft_cli_out, smi_line)
+        enc_out = phase_encoders(dev, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    zero_paths = {"eval_cli": eval_out["launches"], "eval_cli_device": eval_out["launches_device"],
-                  "predict": pred_out["launches"], "features": feat_out["launches"],
-                  "bench_eval_e2e": bench_eval["launches"]}
+    other_paths = {"eval_cli": eval_out["launches"],
+                   "eval_cli_device": eval_out["launches_device"],
+                   "predict": pred_out["launches"], "features": feat_out["launches"],
+                   "bench_eval_e2e": bench_eval["launches"], "prepare_cli": prep_out["launches"],
+                   "serving": serve_out["launches"], "encoders_ssl": enc_out["ssl_launches"],
+                   "encoders_ft": enc_out["ft_launches"]}
     line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows,
-                        cli_out, ft_out, ft_cli_out, zero_paths)
+                        cli_out, ft_out, ft_cli_out, other_paths)
     print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -71,7 +71,7 @@ EVAL_CHUNK = 128  # the evaluation CLI's --val-chunk default
 def _config(arch: str, batch: int, env) -> SSLConfig:
     if env.get("BENCH_INTER_DTYPE", "float32") != "float32" or env.get("BENCH_REMAT_STAGES"):
         raise ValueError("BENCH_INTER_DTYPE / BENCH_REMAT_STAGES: not ported yet, "
-                         "ROADMAP.md queue 1 item 6")
+                         "ROADMAP.md queue 1, the large-model memory path")
     return SSLConfig(
         arch=arch, scale=4, batch_size=batch, amp=True,
         use_ac=env.get("BENCH_USE_AC", "0") == "1",

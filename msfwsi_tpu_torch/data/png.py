@@ -1,11 +1,12 @@
 """A PNG writer on zlib and numpy (the port has no PIL), and a reader of a
 PNG's size from its header.
 
-:func:`write_png` writes 8-bit non-interlaced grey, RGB, RGBA or palette
-images with one IDAT; the rows may cycle through the five filter types, so
-one image can exercise every path of a decoder. A palette image (colour
-type 3) stores class indices that PIL and the port's decoder read back as
-the indices themselves, with colours for a viewer.
+:func:`write_png` writes non-interlaced 8-bit grey, grey + alpha, RGB, RGBA
+or palette images and 16-bit grey images, with one IDAT; the rows may cycle
+through the five filter types, so one image can exercise every path of a
+decoder. A palette image (colour type 3) stores class indices that PIL and
+the port's decoder read back as the indices themselves, with colours for a
+viewer. A 16-bit grey image is what PIL writes for a ``uint16`` mask.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 __all__ = ["write_png", "png_size"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 _PALETTE_TYPE = 3
 
 
@@ -28,10 +29,11 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
         ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
 
 
-def _filtered(img: np.ndarray, bpp: int, filters: Sequence[int]) -> np.ndarray:
-    """(H, 1 + W*C) rows, each prefixed by its filter type."""
-    H = img.shape[0]
-    raw = img.reshape(H, -1).astype(np.int16)
+def _filtered(raw: np.ndarray, bpp: int, filters: Sequence[int]) -> np.ndarray:
+    """(H, 1 + row bytes): the (H, row bytes) uint8 ``raw`` filtered with
+    ``bpp`` bytes a pixel, each row prefixed by its filter type."""
+    H = raw.shape[0]
+    raw = raw.astype(np.int16)
     left = np.zeros_like(raw)
     left[:, bpp:] = raw[:, :-bpp]
     up = np.zeros_like(raw)
@@ -53,30 +55,36 @@ def _filtered(img: np.ndarray, bpp: int, filters: Sequence[int]) -> np.ndarray:
 
 def write_png(path: str, img: np.ndarray, filters: Sequence[int] = (0, 1, 2, 3, 4),
               palette: Sequence[tuple[int, int, int]] | None = None) -> None:
-    """Write a uint8 (H, W) or (H, W, C) array, C in 1, 3, 4, to ``path``
-    as an 8-bit non-interlaced PNG with one IDAT, row i filtered with
-    ``filters[i % len(filters)]`` (0 none, 1 sub, 2 up, 3 average, 4
-    Paeth). With ``palette`` (RGB triples, at most 256) an (H, W) array is
-    written as palette indices (colour type 3), the palette padded with
-    black to 256 entries so that every index has a colour."""
+    """Write a uint8 (H, W) or (H, W, C) array, C in 1-4, to ``path`` as an
+    8-bit non-interlaced PNG, or a uint16 (H, W) array as a 16-bit grey one
+    (big-endian samples, filtered on bytes at 2 bytes a pixel), with one
+    IDAT, row i filtered with ``filters[i % len(filters)]`` (0 none, 1 sub,
+    2 up, 3 average, 4 Paeth). With ``palette`` (RGB triples, at most 256)
+    a uint8 (H, W) array is written as palette indices (colour type 3), the
+    palette padded with black to 256 entries so that every index has a
+    colour."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"want a uint8 (H, W[, C]) array, got {img.dtype} {img.shape}")
+    wide = img.dtype == np.uint16 and img.ndim == 2
+    if not (wide or (img.dtype == np.uint8 and img.ndim in (2, 3))):
+        raise ValueError(f"want a uint8 (H, W[, C]) or uint16 (H, W) array, got {img.dtype} "
+                         f"{img.shape}")
     C = 1 if img.ndim == 2 else img.shape[2]
     if C not in _COLOR_TYPE or any(f not in range(5) for f in filters) or not filters:
         raise ValueError(f"channels {C} or filters {tuple(filters)} not supported")
     plte = b""
     color_type = _COLOR_TYPE[C]
     if palette is not None:
-        if img.ndim != 2 or not 0 < len(palette) <= 256:
-            raise ValueError(f"a palette image is (H, W) with 1-256 colours, got {img.shape} "
-                             f"and {len(palette)} colours")
+        if wide or img.ndim != 2 or not 0 < len(palette) <= 256:
+            raise ValueError(f"a palette image is uint8 (H, W) with 1-256 colours, got "
+                             f"{img.dtype} {img.shape} and {len(palette)} colours")
         flat = [int(v) for rgb in palette for v in rgb]
         plte = _chunk(b"PLTE", bytes(flat + [0] * (768 - len(flat))))
         color_type = _PALETTE_TYPE
     H, W = img.shape[:2]
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, color_type, 0, 0, 0)
-    idat = zlib.compress(_filtered(img, C, filters).tobytes())
+    depth = 16 if wide else 8
+    raw = (img.astype(">u2") if wide else img).view(np.uint8).reshape(H, -1)
+    ihdr = struct.pack(">IIBBBBB", W, H, depth, color_type, 0, 0, 0)
+    idat = zlib.compress(_filtered(raw, C * depth // 8, filters).tobytes())
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + plte + _chunk(b"IDAT", idat)
                 + _chunk(b"IEND", b""))
@@ -85,7 +93,7 @@ def write_png(path: str, img: np.ndarray, filters: Sequence[int] = (0, 1, 2, 3, 
 def png_size(path: str) -> tuple[int, int]:
     """(width, height) of a PNG file from its IHDR chunk, as PIL's
     ``Image.size``; nothing past the header is read. Unlike the decoder's
-    ``native.probe`` it takes any PNG (16-bit, interlaced), since a raw
+    ``native.probe`` it takes any PNG (16-bit colour, interlaced), since a raw
     slide need not be one the port decodes."""
     with open(path, "rb") as f:
         head = f.read(24)

@@ -14,14 +14,15 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "BasicBlock", "ResNet", "ARCH_SPECS", "feature_dims", "get_encoder",
-           "torch_style_init"]
+__all__ = ["BatchNorm", "BasicBlock", "Bottleneck", "ResNet", "ARCH_SPECS", "feature_dims",
+           "get_encoder", "torch_style_init"]
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with the JAX package's semantics: statistics in
-    fp32 as mean and mean-of-squares, the *biased* batch variance, running
-    stats updated as ``m*ra + (1-m)*batch`` with flax momentum ``m = 0.9``,
+    fp32 (float64 for a float64 input) as mean and mean-of-squares, the
+    *biased* batch variance, running stats updated as ``m*ra +
+    (1-m)*batch`` with flax momentum ``m = 0.9``,
     and the output in the input's dtype. The normalization arithmetic runs
     in the input's dtype, as the encoders' ``BatchNormNamedStats`` does, or
     with ``normalize_fp32`` in fp32, as flax ``nn.BatchNorm`` in the heads
@@ -57,7 +58,7 @@ class BatchNorm(nn.Module):
         shape = [1, -1] + [1] * (x.dim() - 2)
         if self.training:
             dims = [0, *range(2, x.dim())]
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp64 stays fp64
             mean = xf.mean(dim=dims)
             var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
             with torch.no_grad():
@@ -84,8 +85,12 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 use_projection: bool = False, zero_init_residual: bool = False):
+                 use_projection: bool = False, zero_init_residual: bool = False,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError(f"BasicBlock only supports groups=1 and base_width=64, got "
+                             f"groups={groups}, base_width={base_width}")
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False)
         self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
@@ -105,6 +110,40 @@ class BasicBlock(nn.Module):
         return torch.relu(out + identity)
 
 
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck (expansion 4), the stride on the 3x3 and
+    its convolution grouped (``groups``); inner width
+    ``int(planes * base_width / 64) * groups``, as torchvision's."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 use_projection: bool = False, zero_init_residual: bool = False,
+                 groups: int = 1, base_width: int = 64):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = BatchNorm(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, groups=groups,
+                               bias=False)
+        self.bn2 = BatchNorm(width)
+        self.conv3 = nn.Conv2d(width, out, 1, bias=False)
+        self.bn3 = BatchNorm(out, zero_init=zero_init_residual)
+        self.downsample = (
+            nn.Sequential(nn.Conv2d(inplanes, out, 1, stride=stride, bias=False), BatchNorm(out))
+            if use_projection
+            else None
+        )
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return torch.relu(out + identity)
+
+
 class ResNet(nn.Module):
     """ResNet whose forward takes NHWC images and returns, with
     ``features="pooled"`` (the default), the 4-tuple of stage-wise
@@ -114,7 +153,8 @@ class ResNet(nn.Module):
     layer4/32) of the smp encoders that HookNet decodes; the stem level is
     taken after ``relu(bn1(conv1))``, before the max-pool."""
 
-    def __init__(self, stage_sizes, block_cls=BasicBlock, zero_init_residual: bool = False):
+    def __init__(self, stage_sizes, block_cls=BasicBlock, zero_init_residual: bool = False,
+                 groups: int = 1, width_per_group: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
@@ -126,7 +166,8 @@ class ResNet(nn.Module):
             for j in range(num_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 needs_proj = j == 0 and (stride != 1 or inplanes != planes * block_cls.expansion)
-                blocks.append(block_cls(inplanes, planes, stride, needs_proj, zero_init_residual))
+                blocks.append(block_cls(inplanes, planes, stride, needs_proj, zero_init_residual,
+                                        groups, width_per_group))
                 inplanes = planes * block_cls.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         e = block_cls.expansion
@@ -154,11 +195,20 @@ class ResNet(nn.Module):
         raise ValueError(f"unknown features mode: {features!r}")
 
 
-# arch -> (block, stage_sizes); resnet10 (one block per stage) keeps the
-# 4-stage contract at the smallest size, for tests.
+# arch -> (block, stage_sizes, extra ResNet kwargs): the JAX package's table
+# (the reference's factories, src/models/resnet.py:278-388); resnet10 (one
+# block per stage) keeps the 4-stage contract at the smallest size.
 ARCH_SPECS = {
-    "resnet10": (BasicBlock, (1, 1, 1, 1)),
-    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet10": (BasicBlock, (1, 1, 1, 1), {}),
+    "resnet18": (BasicBlock, (2, 2, 2, 2), {}),
+    "resnet34": (BasicBlock, (3, 4, 6, 3), {}),
+    "resnet50": (Bottleneck, (3, 4, 6, 3), {}),
+    "resnet101": (Bottleneck, (3, 4, 23, 3), {}),
+    "resnet152": (Bottleneck, (3, 8, 36, 3), {}),
+    "resnext50_32x4d": (Bottleneck, (3, 4, 6, 3), {"groups": 32, "width_per_group": 4}),
+    "resnext101_32x8d": (Bottleneck, (3, 4, 23, 3), {"groups": 32, "width_per_group": 8}),
+    "wide_resnet50_2": (Bottleneck, (3, 4, 6, 3), {"width_per_group": 128}),
+    "wide_resnet101_2": (Bottleneck, (3, 4, 23, 3), {"width_per_group": 128}),
 }
 
 
@@ -174,8 +224,8 @@ def feature_dims(arch: str) -> tuple[int, int, int, int]:
 def get_encoder(arch: str, **kwargs) -> ResNet:
     if arch not in ARCH_SPECS:
         raise ValueError(f"unknown arch {arch!r}; the port has {sorted(ARCH_SPECS)}")
-    block_cls, stage_sizes = ARCH_SPECS[arch]
-    return ResNet(stage_sizes, block_cls, **kwargs)
+    block_cls, stage_sizes, extra = ARCH_SPECS[arch]
+    return ResNet(stage_sizes, block_cls, **extra, **kwargs)
 
 
 def torch_style_init(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -30,11 +30,14 @@ _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _REASONS = {
     -1: "cannot be opened",
     -2: "is corrupt or truncated",
-    -3: "has another shape than the batch's first file",
+    -3: "has another shape or bit depth than the batch's first file",
     -4: "bad arguments",
-    -5: "is an unsupported PNG (only 8-bit, non-interlaced grey, RGB, palette, grey+alpha "
-        "and RGBA are decoded)",
+    -5: "is an unsupported PNG (only non-interlaced 8-bit grey, RGB, palette, grey+alpha "
+        "and RGBA, and 16-bit grey, are decoded)",
     -6: "is a JPEG, and this build found no libjpeg",
+    -7: "has a side above the decoder's limit of 2^20 pixels",
+    -8: "holds more than the decoder's limit of 4 GiB of raw image bytes (one zlib inflate "
+        "into one buffer)",
 }
 
 _lock = threading.Lock()
@@ -82,10 +85,10 @@ def load_library() -> ctypes.CDLL:
             lib.tileio_decode_batch.restype = ctypes.c_int
             lib.tileio_decode_batch.argtypes = [
                 ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p,
             ]
             lib.tileio_probe.restype = ctypes.c_int
-            lib.tileio_probe.argtypes = [ctypes.c_char_p, i32p, i32p, i32p]
+            lib.tileio_probe.argtypes = [ctypes.c_char_p, i32p, i32p, i32p, i32p]
             lib.tileio_has_jpeg.restype = ctypes.c_int
             lib.tileio_has_jpeg.argtypes = []
             _lib = lib
@@ -101,35 +104,44 @@ def _fail(path, code: int) -> IOError:
     return IOError(f"cannot decode {path}: it {_REASONS.get(code, f'failed (code {code})')}")
 
 
-def probe(path: str) -> tuple[int, int, int]:
-    """(height, width, channels as stored) of an image file."""
-    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+def _probe(path: str) -> tuple[int, int, int, int]:
+    """(height, width, channels, bytes a sample) of an image file."""
+    h, w, c, b = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     rc = load_library().tileio_probe(os.fsencode(path), ctypes.byref(h), ctypes.byref(w),
-                                     ctypes.byref(c))
+                                     ctypes.byref(c), ctypes.byref(b))
     if rc != 0:
         raise _fail(path, rc)
-    return h.value, w.value, c.value
+    return h.value, w.value, c.value, b.value
+
+
+def probe(path: str) -> tuple[int, int, int]:
+    """(height, width, channels as stored) of an image file."""
+    return _probe(path)[:3]
 
 
 def decode_batch(paths, height: int, width: int, channels: int, n_threads: int = 0,
-                 out: np.ndarray | None = None) -> np.ndarray:
+                 out: np.ndarray | None = None, dtype=np.uint8) -> np.ndarray:
     """Decode ``len(paths)`` images of one shape into one contiguous
-    (N, H, W, C) uint8 array, ``out`` if given; C = 1 gives (N, H, W).
-    ``n_threads`` 0 takes one thread per core. Raises ``IOError`` naming
-    the first file that failed."""
+    (N, H, W, C) array of ``dtype``, ``out`` if given; C = 1 gives
+    (N, H, W). ``dtype`` is uint8 (tiles, masks), or uint16 for 16-bit grey
+    PNGs. ``n_threads`` 0 takes one thread per core. Raises ``IOError``
+    naming the first file that failed."""
     n = len(paths)
+    dtype = np.dtype(dtype)
+    if dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"dtype must be uint8 or uint16, got {dtype}")
     shape = (n, height, width) if channels == 1 else (n, height, width, channels)
     if out is None:
-        out = np.empty(shape, np.uint8)
-    elif out.dtype != np.uint8 or out.shape != shape or not out.flags.c_contiguous:
-        raise ValueError(f"out must be a C-contiguous uint8 array of shape {shape}, "
+        out = np.empty(shape, dtype)
+    elif out.dtype != dtype or out.shape != shape or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous {dtype} array of shape {shape}, "
                          f"got {out.dtype} {out.shape}")
     if n == 0:
         return out
     status = (ctypes.c_int * n)()
     names = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
     rc = load_library().tileio_decode_batch(names, n, out.ctypes.data, height, width,
-                                            channels, n_threads, status)
+                                            channels, dtype.itemsize, n_threads, status)
     if rc != 0:
         i = next(i for i in range(n) if status[i] != 0)
         raise _fail(paths[i], status[i])
@@ -137,7 +149,8 @@ def decode_batch(paths, height: int, width: int, channels: int, n_threads: int =
 
 
 def load_image(path: str) -> np.ndarray:
-    """One image as stored: (H, W) for one channel, else (H, W, C), as
-    ``np.asarray(PIL.Image.open(path))`` gives it."""
-    h, w, c = probe(path)
-    return decode_batch([path], h, w, c, n_threads=1)[0]
+    """One image as stored: (H, W) for one channel, else (H, W, C), uint8,
+    or uint16 for a 16-bit grey PNG, as ``np.asarray(PIL.Image.open(path))``
+    gives it."""
+    h, w, c, b = _probe(path)
+    return decode_batch([path], h, w, c, n_threads=1, dtype=np.uint16 if b == 2 else np.uint8)[0]

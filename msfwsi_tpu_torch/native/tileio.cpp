@@ -8,11 +8,15 @@
 //
 // PNG is decoded here on top of zlib's inflate: chunk parsing with CRC
 // checks, and the five row filters (none, sub, up, average, Paeth) undone
-// in place. It takes 8-bit, non-interlaced images of colour type 0 (grey),
+// in place. It takes non-interlaced images: 8-bit of colour type 0 (grey),
 // 2 (RGB), 3 (palette: the indices are returned), 4 (grey + alpha) and 6
-// (RGBA), and returns the samples as stored, as PIL's np.asarray(Image)
-// does. Anything else is an error, never a silent conversion. It needs no
-// libpng, which the machines with the card may lack.
+// (RGBA), and 16-bit grey, whose big-endian samples are returned as
+// uint16 in host order. It returns the samples as stored, as PIL's
+// np.asarray(Image) does. Anything else is an error, never a silent
+// conversion. Two limits are errors of their own: a side above 2^20
+// pixels (kTooWide), and more than 4 GiB of filtered image bytes, which
+// zlib's 32-bit avail_out cannot take in one inflate (kTooManyBytes). It
+// needs no libpng, which the machines with the card may lack.
 //
 // JPEG goes through libjpeg when the build found its header
 // (TILEIO_JPEG); otherwise a JPEG file is an error (kNoJpeg).
@@ -47,6 +51,10 @@ constexpr int kShapeMismatch = -3;
 constexpr int kBadArgs = -4;
 constexpr int kUnsupported = -5;
 constexpr int kNoJpeg = -6;
+constexpr int kTooWide = -7;
+constexpr int kTooManyBytes = -8;
+
+constexpr uint32_t kMaxSide = 1u << 20;
 
 const uint8_t kPngSignature[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
 
@@ -84,7 +92,7 @@ uint32_t be32(const uint8_t* p) {
 }
 
 struct PngHeader {
-  int width, height, channels;
+  int width, height, channels, sample_bytes;
 };
 
 // Channels of an 8-bit colour type, or 0 if the type is not one we take.
@@ -109,13 +117,19 @@ int png_header(const uint8_t* data, size_t size, PngHeader* h, size_t* ihdr_end)
   const uint8_t* d = c + 8;
   uint32_t w = be32(d), hh = be32(d + 4);
   int depth = d[8], color = d[9], compression = d[10], filter = d[11], interlace = d[12];
-  if (w == 0 || hh == 0 || w > (1u << 20) || hh > (1u << 20) || compression != 0 || filter != 0)
-    return kDecodeFailed;
+  if (w == 0 || hh == 0 || compression != 0 || filter != 0) return kDecodeFailed;
   int ch = png_channels(color);
-  if (depth != 8 || ch == 0 || interlace != 0) return kUnsupported;
+  bool grey16 = depth == 16 && color == 0;
+  if ((depth != 8 && !grey16) || ch == 0 || interlace != 0) return kUnsupported;
+  if (w > kMaxSide || hh > kMaxSide) return kTooWide;
+  int sample_bytes = depth / 8;
+  // the filtered image (a filter byte a row) passes through zlib's 32-bit
+  // avail_out in one piece
+  if (uint64_t(hh) * (uint64_t(w) * ch * sample_bytes + 1) > 0xFFFFFFFFull) return kTooManyBytes;
   h->width = int(w);
   h->height = int(hh);
   h->channels = ch;
+  h->sample_bytes = sample_bytes;
   *ihdr_end = 8 + 25;
   return kOk;
 }
@@ -162,18 +176,23 @@ bool unfilter_row(int type, const uint8_t* cur, const uint8_t* prev, uint8_t* ou
   }
 }
 
-// Decode one PNG file into `out` (height x width x channels, as stored).
-// `file` and `filtered` are the calling thread's scratch buffers.
+// Decode one PNG file into `out` (height x width x channels samples of
+// `sample_bytes` bytes, as stored; 16-bit samples in host order). `file`
+// and `filtered` are the calling thread's scratch buffers.
 int decode_png_one(const char* path, uint8_t* out, int height, int width, int channels,
-                   std::vector<uint8_t>& file, std::vector<uint8_t>& filtered) {
+                   int sample_bytes, std::vector<uint8_t>& file,
+                   std::vector<uint8_t>& filtered) {
   if (!read_file(path, &file)) return kOpenFailed;
   PngHeader h;
   size_t pos;
   int rc = png_header(file.data(), file.size(), &h, &pos);
   if (rc != kOk) return rc;
-  if (h.width != width || h.height != height || h.channels != channels) return kShapeMismatch;
+  if (h.width != width || h.height != height || h.channels != channels ||
+      h.sample_bytes != sample_bytes)
+    return kShapeMismatch;
 
-  const size_t row = size_t(width) * channels;
+  const int bpp = channels * sample_bytes;
+  const size_t row = size_t(width) * bpp;
   filtered.resize(size_t(height) * (row + 1));
   z_stream zs;
   std::memset(&zs, 0, sizeof(zs));
@@ -232,13 +251,23 @@ int decode_png_one(const char* path, uint8_t* out, int height, int width, int ch
   for (int y = 0; y < height; ++y) {
     const uint8_t* src = filtered.data() + size_t(y) * (row + 1);
     uint8_t* dst = out + size_t(y) * row;
-    if (!unfilter_row(src[0], src + 1, prev, dst, row, channels)) return kDecodeFailed;
+    if (!unfilter_row(src[0], src + 1, prev, dst, row, bpp)) return kDecodeFailed;
     prev = dst;
+  }
+  if (sample_bytes == 2) {
+    // PNG stores 16-bit samples big-endian; the filters work on those
+    // bytes, so swap only once every row is reconstructed.
+    uint16_t* v = reinterpret_cast<uint16_t*>(out);
+    const size_t n = size_t(height) * width * channels;
+    for (size_t i = 0; i < n; ++i) {
+      uint8_t* b = reinterpret_cast<uint8_t*>(v + i);
+      v[i] = uint16_t((uint16_t(b[0]) << 8) | b[1]);
+    }
   }
   return kOk;
 }
 
-int probe_png(const char* path, int* height, int* width, int* channels) {
+int probe_png(const char* path, int* height, int* width, int* channels, int* sample_bytes) {
   uint8_t head[8 + 25];
   FILE* f = std::fopen(path, "rb");
   if (!f) return kOpenFailed;
@@ -251,6 +280,7 @@ int probe_png(const char* path, int* height, int* width, int* channels) {
   *height = h.height;
   *width = h.width;
   *channels = h.channels;
+  *sample_bytes = h.sample_bytes;
   return kOk;
 }
 
@@ -310,35 +340,37 @@ int jpeg_one(const char* path, uint8_t* out, int* height, int* width, int* chann
 #endif
 
 int decode_one(const char* path, uint8_t* out, int height, int width, int channels,
-               std::vector<uint8_t>& file, std::vector<uint8_t>& filtered) {
+               int sample_bytes, std::vector<uint8_t>& file, std::vector<uint8_t>& filtered) {
   if (is_jpeg(path)) {
 #ifdef TILEIO_JPEG
+    if (sample_bytes != 1) return kShapeMismatch;
     return jpeg_one(path, out, &height, &width, &channels);
 #else
     return kNoJpeg;
 #endif
   }
-  return decode_png_one(path, out, height, width, channels, file, filtered);
+  return decode_png_one(path, out, height, width, channels, sample_bytes, file, filtered);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decode n images (all height x width x channels) into `out`
-// (n * height * width * channels contiguous uint8) with n_threads threads
-// (0: one per core). Returns 0 on success or the first error code met;
-// `status` (length n) receives each file's code.
+// Decode n images (all height x width x channels samples of sample_bytes
+// bytes: 1, or 2 for 16-bit grey) into `out` (n * height * width *
+// channels contiguous samples) with n_threads threads (0: one per core).
+// Returns 0 on success or the first error code met; `status` (length n)
+// receives each file's code.
 int tileio_decode_batch(const char** paths, int n, uint8_t* out, int height, int width,
-                        int channels, int n_threads, int* status) {
-  if (n <= 0 || height <= 0 || width <= 0 || channels < 1 || channels > 4 || !paths || !out ||
-      !status)
+                        int channels, int sample_bytes, int n_threads, int* status) {
+  if (n <= 0 || height <= 0 || width <= 0 || channels < 1 || channels > 4 ||
+      (sample_bytes != 1 && sample_bytes != 2) || !paths || !out || !status)
     return kBadArgs;
   if (n_threads <= 0) n_threads = int(std::thread::hardware_concurrency());
   if (n_threads > n) n_threads = n;
   if (n_threads < 1) n_threads = 1;
 
-  const size_t stride = size_t(height) * width * channels;
+  const size_t stride = size_t(height) * width * channels * sample_bytes;
   std::atomic<int> next(0);
   std::atomic<int> first_error(kOk);
 
@@ -347,7 +379,8 @@ int tileio_decode_batch(const char** paths, int n, uint8_t* out, int height, int
     for (;;) {
       int i = next.fetch_add(1);
       if (i >= n) return;
-      int rc = decode_one(paths[i], out + stride * i, height, width, channels, file, filtered);
+      int rc = decode_one(paths[i], out + stride * i, height, width, channels, sample_bytes, file,
+                          filtered);
       status[i] = rc;
       if (rc != kOk) {
         int expected = kOk;
@@ -363,17 +396,18 @@ int tileio_decode_batch(const char** paths, int n, uint8_t* out, int height, int
   return first_error.load();
 }
 
-// An image's dimensions: 0, with height/width/channels (as stored), or a
-// negative error code.
-int tileio_probe(const char* path, int* height, int* width, int* channels) {
+// An image's dimensions: 0, with height/width/channels (as stored) and the
+// bytes of a sample (1, or 2 for 16-bit grey), or a negative error code.
+int tileio_probe(const char* path, int* height, int* width, int* channels, int* sample_bytes) {
   if (is_jpeg(path)) {
 #ifdef TILEIO_JPEG
+    *sample_bytes = 1;
     return jpeg_one(path, nullptr, height, width, channels);
 #else
     return kNoJpeg;
 #endif
   }
-  return probe_png(path, height, width, channels);
+  return probe_png(path, height, width, channels, sample_bytes);
 }
 
 // 1 if this build decodes JPEG (libjpeg was found), else 0.

@@ -1,8 +1,8 @@
-"""Jigsaw geometry of MSF-WSI as pure index math on tensors, and the prep
-grid's tile geometry.
+"""Jigsaw geometry of MSF-WSI as pure index math on tensors, the prep
+grid's tile geometry and the BCSS label remap.
 
-Port of ``msfwsi_tpu/ops/geometry.py`` (the jigsaw and :class:`TileGrid`);
-image layout is NHWC, as there.
+Port of ``msfwsi_tpu/ops/geometry.py`` (the jigsaw, :class:`TileGrid` and
+:func:`remap_bcss_labels`); image layout is NHWC, as there.
 """
 
 from __future__ import annotations
@@ -13,12 +13,14 @@ import numpy as np
 import torch
 
 __all__ = [
+    "BCSS_CLASS_REMAP",
     "TileGrid",
     "batched_blockshaped",
     "invert_permutation",
     "unshuffle_features",
     "reflect_index",
     "reflect_pad_hw",
+    "remap_bcss_labels",
 ]
 
 
@@ -122,3 +124,28 @@ class TileGrid:
         patch = np.zeros((sz, sz) + img.shape[2:], img.dtype)
         patch[0 : py1 - py0, 0 : px1 - px0] = img[py0:py1, px0:px1]
         return patch
+
+
+# BCSS ships 21 raw annotation codes; MSF-WSI collapses them to 5 classes
+# (+0 background/outside) at prep time (the reference's
+# ``tools/bcss_prepare.py:25-34``).
+BCSS_CLASS_REMAP = {
+    1: (1, 19, 20),
+    2: (2,),
+    3: (3, 10, 11, 14),
+    4: (4,),
+    5: (5, 6, 7, 8, 9, 12, 13, 15, 16, 17, 18, 21),
+}
+
+
+def remap_bcss_labels(mask: np.ndarray) -> np.ndarray:
+    """Raw BCSS label codes -> the 5-class scheme, by one lookup table (the
+    reference's sequential ``np.isin`` sweeps never rewrite each other's
+    outputs, so a table reproduces them). The table is sized to the mask's
+    maximum, so a code of a 16-bit mask >= 256 stays as it is, as under
+    the sweeps; the dtype is the mask's."""
+    n = max(256, int(mask.max()) + 1 if mask.size else 256)
+    lut = np.arange(n, dtype=mask.dtype)
+    for new, raws in BCSS_CLASS_REMAP.items():
+        lut[list(raws)] = new
+    return lut[mask]

@@ -63,7 +63,7 @@ def _unsupported(args) -> list[str]:
     checks = (
         (args.accum_steps > 1, f"--accum-steps {args.accum_steps}", FT.ACCUM_NOT_PORTED),
         (args.world_size > 1, f"--world-size {args.world_size}",
-         "not ported yet, ROADMAP.md queue 1 item 7 (distributed)"),
+         "not ported yet, ROADMAP.md queue 1, distributed"),
     )
     return [f"{flag}: {why}" for bad, flag, why in checks if bad]
 

@@ -57,7 +57,7 @@ __all__ = ["build_parser", "main"]
 # Flags kept for parity with the reference's DDP/CUDA runtime that change
 # nothing here; each is logged once when set to a non-default value.
 NOOP_FLAGS = {
-    "world_size": "one process on one device (data parallelism is ROADMAP.md queue 1 item 7)",
+    "world_size": "one process on one device (data parallelism: ROADMAP.md queue 1, distributed)",
     "rank": "one process on one device",
     "dist_url": "no process group is formed",
     "dist_backend": "no process group is formed",
@@ -75,8 +75,8 @@ NOOP_FLAGS = {
 def _unsupported(args) -> list[str]:
     """Flag values the port cannot honour yet, each with the queue item of
     ``ROADMAP.md`` that ports it."""
-    big = "ROADMAP.md queue 1 item 6 (large-model memory path)"
-    dist = "ROADMAP.md queue 1 item 7 (distributed)"
+    big = "ROADMAP.md queue 1, the large-model memory path"
+    dist = "ROADMAP.md queue 1, distributed"
     checks = (
         (args.inter_opt != "adam", f"--inter-opt {args.inter_opt}", big),
         (args.inter_dtype != "float32", f"--inter-dtype {args.inter_dtype}", big),

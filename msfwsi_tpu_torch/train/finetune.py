@@ -46,7 +46,7 @@ __all__ = [
 PAIP_CLASSES = ["tissue", "whole", "viable"]
 BCSS_CLASSES = ["tumor", "stroma", "infla", "necr", "other"]
 
-ACCUM_NOT_PORTED = "not ported yet, ROADMAP.md queue 1 item 6 (large-model memory path)"
+ACCUM_NOT_PORTED = "not ported yet, ROADMAP.md queue 1, the large-model memory path"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -253,7 +253,8 @@ def test_config_lr_and_accum():
     config = FT.FinetuneConfig(batch_size=16, lr=1e-3)
     assert config.init_lr == pytest.approx(1e-3 * 0.5)
     assert config.num_classes == 6
-    with pytest.raises(ValueError, match=r"not ported yet, ROADMAP\.md queue 1 item 6"):
+    with pytest.raises(ValueError,
+                       match=r"not ported yet, ROADMAP\.md queue 1, the large-model memory path"):
         FT.FinetuneConfig(accum_steps=2)
 
 
@@ -430,7 +431,8 @@ def test_recipes_parse_verbatim(name, argv):
 
 
 def test_accum_steps_raises_naming_the_queue_item(tmp_path):
-    with pytest.raises(ValueError, match=r"not ported yet, ROADMAP\.md queue 1 item 6"):
+    with pytest.raises(ValueError,
+                       match=r"not ported yet, ROADMAP\.md queue 1, the large-model memory path"):
         ssl_finetune.main(["--accum-steps", "2", "--synthetic", "2", "--device", "cpu",
                            "--log-dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()

@@ -219,6 +219,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import msfwsi_tpu_torch.evaluate, msfwsi_tpu_torch.predict\n"
         "import msfwsi_tpu_torch.extract_features, msfwsi_tpu_torch.linear_probe\n"
         "import msfwsi_tpu_torch.dataset_stats, msfwsi_tpu_torch.parity_check\n"
+        "import msfwsi_tpu_torch.data.prepare, msfwsi_tpu_torch.bcss_prepare\n"
+        "import msfwsi_tpu_torch.make_synthetic_slides, msfwsi_tpu_torch.export_serving\n"
+        "import msfwsi_tpu_torch.train.serving\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
