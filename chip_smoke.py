@@ -124,7 +124,21 @@ Phases, each logged with a timestamp:
    warm-up and 3 timed steps): finite loss, K1 4 launches a step, tile
    views/s, peak memory and its part held before the first step; one fused
    HookNet fine-tuning step at resnext50_32x4d (b16, 256 px), no launch;
-21. the kernels JSON line (each kernel's count on every path: 0 on the
+21. memory: the large-model memory path. resnet50 SSL at full width and
+   the recipe's b32 (scale 4, bf16 amp) as 2 microbatches, the fused
+   outer-product Adafactor on bf16 fuser heads: 2 warm-up and 3 timed
+   steps, finite loss, K1 8 launches a step (4 a microbatch), no dense head
+   gradient, tile views/s, peak memory and the part held between steps, 1
+   step traced; the same model with ``use_ac`` on stages 1-2: a lower
+   peak; at resnet10 on the card (fp32): fused against plain Adafactor
+   over 3 steps, accum 2 on a duplicated batch against accum 1, remat's
+   gradients and running stats against none; ``ssl_train.main`` with
+   ``--accum-steps 2 --inter-opt fused_adafactor --inter-dtype bfloat16``
+   at resnet18 b32 (2 epochs of 1 step on the datapath's tiles, K1 8 a
+   step) and a resume whose model and optimizer states equal the
+   checkpoint's; one fused HookNet fine-tuning step at resnet18 b64,
+   accum 2, no launch;
+22. the kernels JSON line (each kernel's count on every path: 0 on the
    fine-tuning, inference and serving paths, K1's on the SSL runs), then
    the result line.
 
@@ -147,7 +161,7 @@ import tempfile
 import time
 
 # A hang must end in a traceback well before any outer time limit: the
-# whole run, build and profile included, takes about four minutes on an H100.
+# whole run, build and profile included, takes about five minutes on an H100.
 WATCHDOG_S = 480
 T0 = time.perf_counter()
 
@@ -730,21 +744,27 @@ def phase_datapath(dev, tmp):
     return root, out
 
 
-def _state_equal(state, payload) -> bool:
-    """Whether a train state holds the model and Adam state of a saved
-    checkpoint payload, bit for bit."""
+def _tree_equal(a, b) -> bool:
+    """Nested dicts and lists of tensors equal bit for bit, dtypes too."""
     import torch
 
-    sd = state.model.state_dict()
-    model_ok = sd.keys() == {k.removeprefix("module.") for k in payload["state_dict"]} and all(
-        torch.equal(sd[k.removeprefix("module.")].cpu(), v.cpu())
-        for k, v in payload["state_dict"].items())
-    got, want = state.optimizer.state_dict()["state"], payload["optimizer"]["state"]
-    opt_ok = got.keys() == want.keys() and all(
-        got[i].keys() == want[i].keys() and all(torch.equal(got[i][k].cpu(), want[i][k].cpu())
-                                                for k in want[i])
-        for i in want)
-    return model_ok and opt_ok
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _state_equal(state, payload) -> bool:
+    """Whether a train state holds the model and optimizer state of a saved
+    checkpoint payload, bit for bit."""
+    sd = {f"module.{k}": v for k, v in state.model.state_dict().items()}
+    return _tree_equal(sd, payload["state_dict"]) and _tree_equal(
+        state.optimizer.state_dict(), payload["optimizer"])
 
 
 def phase_cli(dev, root, tmp, slice_views_per_s):
@@ -1623,6 +1643,311 @@ def phase_encoders(dev, smi_line):
             "views_per_s": ssl["views_per_s"], "peak_bytes": ssl["peak_bytes"]}
 
 
+MEMORY_FLAGS = ("--accum-steps", "2", "--inter-opt", "fused_adafactor", "--inter-dtype",
+                "bfloat16")
+
+
+def _memory_steps(name, state, step, tiles, gen, warmup, steps, smi_line):
+    """``warmup`` then ``steps`` timed steps of a fused SSL step, every
+    kernel count set to 0 just before; returns the numbers, with the
+    memory held between steps (weights, optimizer state) after them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    for i in range(warmup):
+        log(name, f"warm-up step {i + 1}: loss {float(step(state, tiles, gen)['loss']):.6f}")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(state, tiles, gen)
+    loss = float(metrics["loss"])  # synchronizes
+    dt = time.perf_counter() - t0
+    launches = _read_counts()
+    out = {"launches": launches, "loss": loss, "step_ms": 1e3 * dt / steps,
+           "views_per_s": tiles.shape[0] * steps * (2 + 2 * 16) / dt,  # K = 16
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "held_bytes": torch.cuda.memory_allocated(), "steps": warmup + steps}
+    log(name, f"{steps} timed steps in {dt:.3f} s ({out['step_ms']:.1f} ms/step): loss "
+        f"{loss:.6f}, {out['views_per_s']:.1f} tile views/s, peak memory "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB, held between steps "
+        f"{out['held_bytes'] / 2**30:.2f} GiB, kernel launches {launches} on {smi_line}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"{name}: non-finite loss {loss}")
+    if launches != {"K1": 8 * out["steps"], "K2": 0, "probe": 0}:
+        raise AssertionError(f"{name}: launches {launches} in {out['steps']} steps, want K1 8 "
+                             "a step (4 per microbatch, accum 2)")
+    return out
+
+
+def _sync_fused_to_plain(plain, fused) -> None:
+    """Give the fused-Adafactor train state the plain one's weights, running
+    stats and optimizer state. The plain Adafactor keeps a torch weight's
+    statistics along its own axes (``v_row`` keeps the second-largest), the
+    fused one ``v_row`` along d_in and ``v_col`` along d_out."""
+    import torch
+
+    from msfwsi_tpu_torch.train.factored import factored_dims
+
+    fused.model.load_state_dict(plain.model.state_dict())
+    names = {p: n for n, p in fused.model.named_parameters()}
+    plain_names = {p: n for n, p in plain.model.named_parameters()}
+    src = {plain_names[p]: opt.state[p] for opt in plain.optimizer.optimizers.values()
+           for g in opt.param_groups for p in g["params"]}
+    with torch.no_grad():
+        for kind, opt in fused.optimizer.optimizers.items():
+            for g in opt.param_groups:
+                for p in g["params"]:
+                    theirs, mine = src.get(names[p], {}), opt.state[p]
+                    if not theirs:
+                        continue
+                    if kind == "fused_adafactor" and factored_dims(tuple(p.shape))[0] != 1:
+                        theirs = {**theirs, "v_row": theirs["v_col"], "v_col": theirs["v_row"]}
+                    for k, v in theirs.items():
+                        if k != "step":
+                            mine[k].copy_(v)
+
+
+def _accumulated_grads(state, batch, accum: int, fuser_weights):
+    """Loss and mean gradient of one accumulated step before the optimizer
+    runs: every ``.grad``, and for a fused-Adafactor weight the dense
+    ``X^T dY`` of its stashed factors (their dY scaled by 1/accum as the
+    optimizer takes them), by parameter name."""
+    from msfwsi_tpu_torch.train.factored import is_factored_kernel
+    from msfwsi_tpu_torch.train.ssl import accumulate, slice_microbatch, ssl_loss_fn
+
+    model = state.model.train()
+    parts = accumulate(model, accum, lambda i: slice_microbatch(batch, accum, i),
+                       lambda mb: (ssl_loss_fn(model, mb, fuser_weights)[0], None), state.stash)
+    grads = {}
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            grads[n] = p.grad.detach().clone()
+        elif state.stash is not None and is_factored_kernel(n, p):
+            x, dy = state.stash.take(p)
+            grads[n] = dy.float().T @ x.float()
+    if state.stash is not None:
+        state.stash.clear()
+    return float(sum(loss for loss, _ in parts)) / accum, grads
+
+
+def memory_checks(dev) -> dict:
+    """The memory path's semantics on the card at a small size (resnet10,
+    scale 2, b4, 64 px views, fp32, TF32 off, cuDNN deterministic): fused
+    against plain Adafactor over 3 steps, each from equal states (the runs
+    otherwise drift apart by Adam's flips on near-zero gradients, through
+    BatchNorm over 4 samples), within ``tests/test_factored.py``'s bounds
+    (losses rtol 1e-3 / atol 1e-5; every element within 2.5 lr, at most
+    max(2, 0.5%) of a tensor outside 5e-5 + 5e-5 |ref|); accum 2 on the
+    adjacent-duplicated batch against accum 1 (loss rel 1e-6, gradients 1e-6,
+    ``tests/test_accum.py``'s), compared on the mean gradient before the
+    optimizer runs, with Adam and with the fused Adafactor (its factored
+    weights' ``X^T dY``), since a first optimizer step can hide a wrong
+    scale; and remat's loss, gradients and running
+    stats against none (1e-6 relative). Returns the measured distances."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.train.ssl import SSLConfig, create_ssl_state, ssl_loss_fn, ssl_train_step
+
+    gen = torch.Generator().manual_seed(11)
+    B, S = 4, 64
+
+    def views(b):
+        rev = torch.stack([torch.randperm(4, generator=gen) for _ in range(b)]).argsort(1)
+        v = {k: torch.randn(n, S, S, 3, generator=gen) for k, n in (
+            ("context1", b), ("context2", b), ("target1_spatial", 4 * b),
+            ("target2_spatial", 4 * b))}
+        return _to({**v, "rev1": rev, "rev2": rev}, dev)
+
+    base = SSLConfig(arch="resnet10", scale=2, batch_size=B, amp=False)
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        states = [create_ssl_state(dataclasses.replace(base, inter_opt=o), device=dev)
+                  for o in ("adafactor", "fused_adafactor")]
+        losses = []
+        lr = base.init_lr
+        worst, loose_worst = 0.0, 0.0
+        for _ in range(3):
+            _sync_fused_to_plain(*states)  # each step from equal states
+            b = views(B)
+            losses.append([float(ssl_train_step(s, b, base.fuser_weights)["loss"])
+                           for s in states])
+            plain = dict(states[0].model.named_parameters())
+            for n, p in states[1].model.named_parameters():
+                ref = plain[n].detach().float()
+                d = (p.detach().float() - ref).abs()
+                loose = int((d > 5e-5 + 5e-5 * ref.abs()).sum())
+                worst = max(worst, float(d.max()) / lr)
+                loose_worst = max(loose_worst, loose / d.numel())
+                if not (float(d.max()) <= 2.5 * lr and loose <= max(2, int(5e-3 * d.numel()))):
+                    raise AssertionError(f"fused vs plain Adafactor on the card: {n} max "
+                                         f"{float(d.max()) / lr:.3g} lr, {loose} loose")
+        got, want = np.array(losses).T[1], np.array(losses).T[0]
+        if not np.allclose(got, want, rtol=1e-3, atol=1e-5):
+            raise AssertionError(f"fused vs plain Adafactor losses {losses}")
+        out["fused_vs_plain"] = {"max_d_over_lr": worst, "loose_fraction": loose_worst,
+                                 "losses": losses}
+        del states
+
+        b = views(B)
+        dup = {k: v.repeat_interleave(2, dim=0) if k.startswith(("context", "rev"))
+               else v.reshape(B, 4, S, S, 3).repeat_interleave(2, dim=0).reshape(-1, S, S, 3)
+               for k, v in b.items()}
+        out["accum_duplicated"] = {}
+        for opt in ("adam", "fused_adafactor"):
+            cfg = dataclasses.replace(base, inter_opt=opt)
+            res = [_accumulated_grads(create_ssl_state(cfg, device=dev), batch, accum,
+                                      cfg.fuser_weights)
+                   for batch, accum in ((b, 1), (dup, 2))]
+            (l1, g1), (l2, g2) = res
+            dg = max(float((g2[n] - g).norm() / g.norm().clamp_min(1e-30)) for n, g in g1.items())
+            if not (g1.keys() == g2.keys() and abs(l2 - l1) <= 1e-6 * abs(l1) and dg <= 1e-6):
+                raise AssertionError(f"accum 2 on the duplicated batch ({opt}): loss {l2} vs "
+                                     f"{l1}, gradients {dg:.3g} apart")
+            out["accum_duplicated"][opt] = {"loss": (l1, l2), "grads_rel": dg,
+                                            "leaves": len(g1)}
+
+        b = views(B)
+        res = []
+        for cfg in (base, dataclasses.replace(base, use_ac=True, remat_stages=(1, 2))):
+            model = create_ssl_state(cfg, device=dev).model.train()
+            loss, _ = ssl_loss_fn(model, b, cfg.fuser_weights)
+            loss.backward()
+            res.append((float(loss.detach()), {n: p.grad for n, p in model.named_parameters()},
+                        dict(model.named_buffers())))
+        (la, ga, ba), (lb, gb, bb) = res
+        dg = max(float((gb[n] - g).norm() / g.norm().clamp_min(1e-30)) for n, g in ga.items())
+        dbuf = max(float((bb[n] - v).abs().max()) for n, v in ba.items())
+        if not (abs(lb - la) <= 1e-6 * abs(la) and dg <= 1e-6 and dbuf <= 1e-6):
+            raise AssertionError(f"remat vs none on the card: loss {lb} vs {la}, gradients "
+                                 f"{dg:.3g}, running stats {dbuf:.3g}")
+        out["remat"] = {"loss": (la, lb), "grads_rel": dg, "stats_abs": dbuf}
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = old
+    log("memory", f"card checks (resnet10, b4, 64 px, fp32): fused vs plain Adafactor over 3 "
+        f"steps {out['fused_vs_plain']} (bounds 2.5 lr, 0.5% outside 5e-5); accum 2 on the "
+        f"duplicated batch vs accum 1 {out['accum_duplicated']} (bound 1e-6); remat (stages 1, "
+        f"2) vs none {out['remat']} (bound 1e-6)")
+    return out
+
+
+def phase_memory(dev, root, tmp, smi_line):
+    """The large-model memory path. (a) resnet50 SSL at full width, b32,
+    scale 4, bf16 amp, accum 2, fused Adafactor on bf16 heads: 2 warm-up and
+    3 timed steps, K1 8 launches a step, tile views/s, peak memory and the
+    part held between steps, then 1 step traced; (b) the same model and
+    tiles with ``use_ac`` on stages 1 and 2: a lower peak; (c) ``memory_checks``; (d)
+    ``ssl_train.main`` with run a's flags at resnet18 b32 on the datapath's
+    tiles, 2 epochs of 1 step, then a resume whose model and optimizer
+    states equal the checkpoint's; (e) one fused HookNet fine-tuning step,
+    resnet18 b64, accum 2, no launch. Returns each path's counts."""
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch import ssl_train
+    from msfwsi_tpu_torch.data.pipeline import AugConfig
+    from msfwsi_tpu_torch.diag import datapath as DP
+    from msfwsi_tpu_torch.train import finetune as FT
+    from msfwsi_tpu_torch.train.ssl import SSLConfig, create_ssl_state, make_fused_step
+
+    config = SSLConfig(arch="resnet50", batch_size=32, scale=4, amp=True, accum_steps=2,
+                       inter_opt="fused_adafactor", inter_dtype="bfloat16")
+    aug = AugConfig(grid=4, compute_dtype="bfloat16")
+    rng = np.random.default_rng(config.seed)
+    tiles = torch.from_numpy(rng.integers(0, 256, (32, 1024, 1024, 3), np.uint8)).to(dev)
+    t = time.perf_counter()
+    state = create_ssl_state(config, device=dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    heads = sum(p.numel() * p.element_size() for n, p in state.model.named_parameters()
+                if n.startswith("inter_"))
+    log("memory", f"resnet50 scale 4 with bf16 heads: {n_params / 1e9:.3f}e9 parameters, the "
+        f"fuser heads {heads / 2**30:.2f} GiB, built in {time.perf_counter() - t:.1f} s")
+    step = make_fused_step(config, aug, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    ssl = _memory_steps("memory", state, step, tiles, gen, 2, 3, smi_line)
+    if state.stash is None or len(state.stash) or any(
+            p.grad is not None for n, p in state.model.named_parameters()
+            if n.startswith("inter_") and p.ndim == 2):
+        raise AssertionError("the fused path left factors or a dense head gradient")
+    profile_steps(lambda: step(state, tiles, gen), 1)
+    for enc in (state.model.context_encoder, state.model.target_encoder):
+        enc.remat_stages = (1, 2)  # the same weights, its blocks of stages 1-2 checkpointed
+    remat = _memory_steps("memory", state, step, tiles, gen, 1, 3, smi_line)
+    log("memory", f"resnet50 b32 accum 2 fused_adafactor bf16 heads: {ssl['views_per_s']:.1f} "
+        f"tile views/s, peak {ssl['peak_bytes'] / 2**30:.2f} GiB, held "
+        f"{ssl['held_bytes'] / 2**30:.2f} GiB; with use_ac (stages 1, 2) "
+        f"{remat['views_per_s']:.1f} tile views/s, peak {remat['peak_bytes'] / 2**30:.2f} GiB "
+        f"on {smi_line}")
+    if not remat["peak_bytes"] < ssl["peak_bytes"]:
+        raise AssertionError(f"remat peak {remat['peak_bytes']} not under {ssl['peak_bytes']}")
+    del state, step, tiles
+    torch.cuda.empty_cache()
+
+    checks = memory_checks(dev)
+
+    logs = os.path.join(tmp, "logs_memory")
+    _reset_counts()  # every kernel count to 0 just before the path
+    # 2 epochs of 1 step: phase "ft_cli" leaves 48 training tiles, a step at b32
+    res = ssl_train.main(DP.cli_argv(root, os.path.join(logs, "train"), epochs=2, extra=(
+        "--steps-per-epoch", "1", "--save-freq", "1", *MEMORY_FLAGS)))
+    cli_launches = _read_counts()
+    steps = sum(e["steps"] for e in res["epochs"])
+    losses = [e["loss"] for e in res["epochs"]]
+    ckpt = os.path.join(res["log_dir"], "checkpoint_0001.pth.tar")
+    resumed = ssl_train.main(DP.cli_argv(root, os.path.join(logs, "resume"), epochs=2, extra=(
+        "--resume", ckpt, *MEMORY_FLAGS)))
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    equal = resumed["start_epoch"] == 2 and _state_equal(resumed["state"], saved)
+    log("memory", f"ssl_train resnet18 b32 {' '.join(MEMORY_FLAGS)}: {steps} steps, losses "
+        f"{losses}, K1 launches {cli_launches}; resume from checkpoint_0001: model and "
+        f"optimizer state equal to the saved ones: {equal}")
+    if not (steps == 2 and all(math.isfinite(x) for x in losses) and equal):
+        raise AssertionError(f"the memory-path CLI: {steps} steps, equal {equal}")
+    if cli_launches != {"K1": 8 * steps, "K2": 0, "probe": 0}:
+        raise AssertionError(f"the memory-path CLI launched {cli_launches} in {steps} steps")
+    del res, resumed, saved
+    torch.cuda.empty_cache()
+
+    config = FT.FinetuneConfig(arch="resnet18", batch_size=64, amp=True, accum_steps=2)
+    rng = np.random.default_rng(config.seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (64, 1024, 1024, 3), np.uint8)).to(dev)
+    masks = torch.from_numpy(rng.integers(0, config.num_classes, (64, 1024, 1024),
+                                          np.uint8)).to(dev)
+    state = FT.create_finetune_state(config, device=dev)
+    step = FT.make_fused_finetune_step(config, AugConfig(compute_dtype="bfloat16"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # every kernel count to 0 just before the path
+    t = time.perf_counter()
+    m = step(state, imgs, masks, gen)
+    loss = float(m["loss"])
+    ft_s = time.perf_counter() - t
+    ft_launches = _read_counts()
+    log("memory", f"HookNet fine-tuning resnet18 b64 accum 2: loss {loss:.6f}, {1e3 * ft_s:.1f} "
+        f"ms (the first step), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"counts {tuple(m['tp'].shape)}, kernel launches {ft_launches}")
+    if not (math.isfinite(loss) and tuple(m["tp"].shape) == (64, config.num_fg)):
+        raise AssertionError(f"memory fine-tuning step: loss {loss}, counts {m['tp'].shape}")
+    _no_launches("memory fine-tuning", ft_launches)
+    summary = (f"resnet50 b32 {ssl['views_per_s']:.1f} tile views/s, peak "
+               f"{ssl['peak_bytes'] / 2**30:.2f} GiB, held {ssl['held_bytes'] / 2**30:.2f} GiB; "
+               f"remat {remat['views_per_s']:.1f} tile views/s, peak "
+               f"{remat['peak_bytes'] / 2**30:.2f} GiB; card checks {checks}; ssl_train K1 "
+               f"{cli_launches['K1']} in {steps} steps; HookNet b64 accum 2 first step "
+               f"{1e3 * ft_s:.1f} ms")
+    return {"ssl": ssl, "remat": remat, "checks": checks, "cli_launches": cli_launches,
+            "ft_launches": ft_launches, "summary": summary}
+
+
 def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out,
                  ft_out, ft_cli_out, other_paths):
     """One entry per kernel. K1's times are for its work in one main-path
@@ -1742,6 +2067,7 @@ def main() -> int:
         prep_out = phase_prepare(dev, tmp, smi_line)
         serve_out = phase_serving(dev, root, tmp, ft_cli_out, smi_line)
         enc_out = phase_encoders(dev, smi_line)
+        mem_out = phase_memory(dev, root, tmp, smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     other_paths = {"eval_cli": eval_out["launches"],
@@ -1749,9 +2075,15 @@ def main() -> int:
                    "predict": pred_out["launches"], "features": feat_out["launches"],
                    "bench_eval_e2e": bench_eval["launches"], "prepare_cli": prep_out["launches"],
                    "serving": serve_out["launches"], "encoders_ssl": enc_out["ssl_launches"],
-                   "encoders_ft": enc_out["ft_launches"]}
+                   "encoders_ft": enc_out["ft_launches"],
+                   "memory_ssl": mem_out["ssl"]["launches"],
+                   "memory_remat": mem_out["remat"]["launches"],
+                   "memory_cli": mem_out["cli_launches"], "memory_ft": mem_out["ft_launches"]}
     line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows,
                         cli_out, ft_out, ft_cli_out, other_paths)
+    # Repeated here so that the end of the output, which may be all a caller
+    # keeps, carries the memory path's readings.
+    log("memory", f"summary: {mem_out['summary']} on {smi_line}")
     print(json.dumps(line), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s on {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,10 +35,13 @@ their median and quartiles and the peak device memory, and the last line is
 target was set for a TPU).
 
 Env knobs: BENCH_ARCH, BENCH_BATCH, BENCH_ITERS, BENCH_WARMUP,
-BENCH_REPEATS, BENCH_MODE, and those of ``bench.py`` the port raises on
-unless left at their defaults (BENCH_USE_AC, BENCH_ACCUM,
-BENCH_INTER_OPT, BENCH_INTER_DTYPE, BENCH_REMAT_STAGES,
-BENCH_PACKED_TAIL).
+BENCH_REPEATS, BENCH_MODE, and ``bench.py``'s memory-path knobs of the SSL
+modes: BENCH_USE_AC (1), BENCH_REMAT_STAGES (e.g. ``1,2``),
+BENCH_INTER_OPT (adam, adafactor, fused_adafactor), BENCH_INTER_DTYPE
+(float32, bfloat16) and BENCH_ACCUM (also in mode ``hooknet``), each named
+in the metric as ``bench.py`` names it (``,ac``, ``,fused_adafactor``,
+``,interbf16``, ``,rs12``, ``,accum2``). BENCH_PACKED_TAIL=1 raises: the
+port computes the decoder unpacked.
 """
 
 from __future__ import annotations
@@ -69,15 +72,24 @@ EVAL_CHUNK = 128  # the evaluation CLI's --val-chunk default
 
 
 def _config(arch: str, batch: int, env) -> SSLConfig:
-    if env.get("BENCH_INTER_DTYPE", "float32") != "float32" or env.get("BENCH_REMAT_STAGES"):
-        raise ValueError("BENCH_INTER_DTYPE / BENCH_REMAT_STAGES: not ported yet, "
-                         "ROADMAP.md queue 1, the large-model memory path")
+    stages = tuple(int(s) for s in env.get("BENCH_REMAT_STAGES", "").split(",") if s)
     return SSLConfig(
         arch=arch, scale=4, batch_size=batch, amp=True,
         use_ac=env.get("BENCH_USE_AC", "0") == "1",
         inter_opt=env.get("BENCH_INTER_OPT", "adam"),
+        inter_dtype=env.get("BENCH_INTER_DTYPE", "float32"),
+        remat_stages=stages or None,
         accum_steps=int(env.get("BENCH_ACCUM", "1")),
     )
+
+
+def _suffix(config: SSLConfig) -> str:
+    """``bench.py``'s metric-name suffix of the memory-path knobs."""
+    return ((",ac" if config.use_ac else "")
+            + (f",{config.inter_opt}" if config.inter_opt != "adam" else "")
+            + (",interbf16" if config.inter_dtype == "bfloat16" else "")
+            + (f",rs{''.join(map(str, config.remat_stages))}" if config.remat_stages else "")
+            + (f",accum{config.accum_steps}" if config.accum_steps > 1 else ""))
 
 
 def _ssl_mode(mode, arch, batch, env, dev, rng, img_size):
@@ -109,10 +121,11 @@ def _ssl_mode(mode, arch, batch, env, dev, rng, img_size):
                  "rev1": rev, "rev2": rev}
 
         def run(i):
-            return ssl_train_step(state, views, config.fuser_weights, amp=config.amp)
+            return ssl_train_step(state, views, config.fuser_weights, amp=config.amp,
+                                  accum_steps=config.accum_steps)
 
     metric = (f"ssl_pretrain_e2e_tile_views_per_sec_per_chip[{arch},b{batch},scale4,"
-              f"{IMG_SIZE}px,{mode}]")
+              f"{IMG_SIZE}px,{mode}{_suffix(config)}]")
     return run, metric, batch * (2 + 2 * K), "tile views"
 
 
@@ -121,7 +134,8 @@ def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
     if env.get("BENCH_PACKED_TAIL", "0") == "1":
         raise ValueError("BENCH_PACKED_TAIL=1: the port computes the decoder unpacked (the "
                          "packed tail is a TPU layout, exact with the same weights)")
-    config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True)
+    accum = int(env.get("BENCH_ACCUM", "1")) if mode == "hooknet" else 1
+    config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True, accum_steps=accum)
     state = FT.create_finetune_state(config, device=dev)
     if mode == "hooknet":
         aug_cfg = AugConfig(seg_size=seg_size, compute_dtype="bfloat16")
@@ -136,7 +150,8 @@ def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
             gen.manual_seed(view_seed(1, 0, i))
             return step(state, imgs, masks, gen)
 
-        metric = f"hooknet_finetune_pairs_per_sec_per_chip[{arch},b{batch},{SEG_SIZE}px]"
+        metric = (f"hooknet_finetune_pairs_per_sec_per_chip[{arch},b{batch},{SEG_SIZE}px"
+                  + (f",accum{accum}" if accum > 1 else "") + "]")
         return run, metric, batch, "pairs"
 
     C = config.num_fg  # foreground classes, as in the eval CLIs

@@ -8,12 +8,60 @@ the reference's (``context_projector.0.3.weight`` ...), so the port's
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.geometry import unshuffle_features
 from .resnet import BatchNorm, get_encoder, torch_style_init
 
-__all__ = ["Projector", "Predictor", "MSFWSI", "build_msfwsi"]
+__all__ = ["HeadLinear", "Projector", "Predictor", "MSFWSI", "build_msfwsi"]
+
+
+class _FactorTap(torch.autograd.Function):
+    """``F.linear`` whose backward gives the input's and the bias's
+    gradients, none for the weight, and adds the layer's ``(X, dY)`` rows to
+    a stash: the factors of ``dW = dY^T X`` that the fused Adafactor reads
+    (``train/factored.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stash):
+        ctx.save_for_backward(x, weight)
+        ctx.stash = stash
+        ctx.has_bias = bias is not None
+        return F.linear(x, weight.to(x.dtype), bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        grad_x = dy @ weight.to(dy.dtype) if ctx.needs_input_grad[0] else None
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        ctx.stash.add(weight, x.detach().reshape(-1, x.shape[-1]), dy2)
+        grad_b = dy2.sum(0) if ctx.has_bias else None
+        return grad_x, None, grad_b, None
+
+
+class HeadLinear(nn.Linear):
+    """The heads' ``Linear``. It computes in the input's dtype, or in the
+    autocast dtype, whatever its weight's dtype (a bf16 weight under fp32
+    inputs is cast up, as flax ``nn.Dense`` with ``param_dtype`` bf16 and
+    ``dtype`` fp32 does). With a ``stash`` (:meth:`MSFWSI.tap_factored`) it
+    runs through :class:`_FactorTap`, and its weight never gets a
+    gradient."""
+
+    stash = None
+
+    def forward(self, x):
+        dev = x.device.type
+        autocast = torch.is_autocast_enabled(dev)
+        if self.stash is None:
+            if autocast or self.weight.dtype == x.dtype:
+                return F.linear(x, self.weight, self.bias)
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return F.linear(x, self.weight.to(x.dtype), bias)
+        dt = torch.get_autocast_dtype(dev) if autocast else x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        with torch.autocast(dev, enabled=False):
+            return _FactorTap.apply(x.to(dt), self.weight, bias, self.stash)
 
 
 def _head_bn(dim: int, affine: bool = True) -> BatchNorm:
@@ -27,9 +75,9 @@ class Projector(nn.Sequential):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__(
-            nn.Linear(in_dim, in_dim, bias=False), _head_bn(in_dim), nn.ReLU(),
-            nn.Linear(in_dim, in_dim, bias=False), _head_bn(in_dim), nn.ReLU(),
-            nn.Linear(in_dim, out_dim, bias=False), _head_bn(out_dim, affine=False),
+            HeadLinear(in_dim, in_dim, bias=False), _head_bn(in_dim), nn.ReLU(),
+            HeadLinear(in_dim, in_dim, bias=False), _head_bn(in_dim), nn.ReLU(),
+            HeadLinear(in_dim, out_dim, bias=False), _head_bn(out_dim, affine=False),
         )
 
 
@@ -38,8 +86,8 @@ class Predictor(nn.Sequential):
 
     def __init__(self, in_dim: int, hidden_dim: int):
         super().__init__(
-            nn.Linear(in_dim, hidden_dim, bias=False), _head_bn(hidden_dim), nn.ReLU(),
-            nn.Linear(hidden_dim, in_dim),
+            HeadLinear(in_dim, hidden_dim, bias=False), _head_bn(hidden_dim), nn.ReLU(),
+            HeadLinear(hidden_dim, in_dim),
         )
 
 
@@ -55,23 +103,43 @@ class MSFWSI(nn.Module):
     features are un-shuffled with the inverse permutation. ``False``: views
     arrive in spatial order and the shuffle is applied to the features the
     fuser takes instead (the same result for the same permutation).
+
+    ``inter_param_dtype``: the storage dtype of the fuser (``inter_``)
+    heads' ``Linear`` weights and biases (their BatchNorm stays fp32);
+    ``remat`` / ``remat_stages``: per-block activation checkpointing of the
+    encoders (:class:`~.resnet.ResNet`).
     """
 
     def __init__(self, arch: str = "resnet18", scale: int = 4, mask_ratio: float = 0.5,
-                 views_shuffled: bool = True):
+                 views_shuffled: bool = True, inter_param_dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_stages=None):
         super().__init__()
         self.arch = arch
         self.scale = scale
         self.K = int(scale**2)
         self.n_keep = int(self.K * (1 - mask_ratio))
         self.views_shuffled = views_shuffled
-        self.context_encoder = get_encoder(arch, zero_init_residual=True)
-        self.target_encoder = get_encoder(arch, zero_init_residual=True)
+        enc = dict(zero_init_residual=True, remat=remat, remat_stages=remat_stages)
+        self.context_encoder = get_encoder(arch, **enc)
+        self.target_encoder = get_encoder(arch, **enc)
         dims = self.context_encoder.feature_dims
         ms_dims = tuple(d * (self.n_keep + 1) for d in dims)
         for side, ds in (("context", dims), ("target", dims), ("inter", ms_dims)):
             setattr(self, f"{side}_projector", nn.ModuleList(Projector(d, d) for d in ds))
             setattr(self, f"{side}_predictor", nn.ModuleList(Predictor(d, d // 4) for d in ds))
+        for m in (*self.inter_projector.modules(), *self.inter_predictor.modules()):
+            if isinstance(m, HeadLinear):
+                m.to(inter_param_dtype)
+
+    def tap_factored(self, stash) -> None:
+        """Route every factored inter-head weight
+        (``train.factored.is_factored_kernel``) through the factor tap into
+        ``stash``."""
+        from ..train.factored import is_factored_kernel
+
+        for name, m in self.named_modules():
+            if isinstance(m, HeadLinear) and is_factored_kernel(f"{name}.weight", m.weight):
+                m.stash = stash
 
     @staticmethod
     def _heads(projectors, predictors, feats):

@@ -114,9 +114,9 @@ class SegmentationHead(nn.Sequential):
 
 
 class _Branch(nn.Module):
-    def __init__(self, arch: str, classes: int, **decoder_kw):
+    def __init__(self, arch: str, classes: int, remat: bool = False, **decoder_kw):
         super().__init__()
-        self.encoder = get_encoder(arch)
+        self.encoder = get_encoder(arch, remat=remat)
         self.decoder = UnetDecoder(self.encoder.pyramid_dims, **decoder_kw)
         self.segmentation_head = SegmentationHead(DECODER_CHANNELS[-1], classes)
 
@@ -124,8 +124,8 @@ class _Branch(nn.Module):
 class ContextUnet(_Branch):
     """Low-magnification branch: NHWC images -> (NCHW logits, NCHW hook)."""
 
-    def __init__(self, arch="resnet18", classes=6):
-        super().__init__(arch, classes, export_block=EXPORT_BLOCK)
+    def __init__(self, arch="resnet18", classes=6, remat: bool = False):
+        super().__init__(arch, classes, remat, export_block=EXPORT_BLOCK)
 
     def forward(self, x):
         decoded, context_feats = self.decoder(self.encoder.pyramid_nchw(x))
@@ -135,8 +135,8 @@ class ContextUnet(_Branch):
 class TargetUnet(_Branch):
     """High-magnification branch consuming the context hook."""
 
-    def __init__(self, arch="resnet18", classes=6):
-        super().__init__(arch, classes, context_ch=DECODER_CHANNELS[EXPORT_BLOCK])
+    def __init__(self, arch="resnet18", classes=6, remat: bool = False):
+        super().__init__(arch, classes, remat, context_ch=DECODER_CHANNELS[EXPORT_BLOCK])
 
     def forward(self, x, context_feats):
         return self.segmentation_head(self.decoder(self.encoder.pyramid_nchw(x), context_feats))
@@ -145,12 +145,13 @@ class TargetUnet(_Branch):
 class HookNet(nn.Module):
     """``HookNet(x_context, x_target) -> (context_logits, target_logits)``,
     images and logits NHWC, ``classes = len(class_names) + 1`` with
-    background 0 (``ssl_finetune.py:144``)."""
+    background 0 (``ssl_finetune.py:144``). ``remat``: per-block activation
+    checkpointing of both branch encoders (``ResNet``)."""
 
-    def __init__(self, arch: str = "resnet18", classes: int = 6):
+    def __init__(self, arch: str = "resnet18", classes: int = 6, remat: bool = False):
         super().__init__()
-        self.context_branch = ContextUnet(arch, classes)
-        self.target_branch = TargetUnet(arch, classes)
+        self.context_branch = ContextUnet(arch, classes, remat)
+        self.target_branch = TargetUnet(arch, classes, remat)
 
     def forward(self, x_context, x_target):
         ctx_logits, context_feats = self.context_branch(x_context)

@@ -9,10 +9,12 @@ on NCHW views in ``channels_last`` memory, which an NHWC tensor already is.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["BatchNorm", "BasicBlock", "Bottleneck", "ResNet", "ARCH_SPECS", "feature_dims",
            "get_encoder", "torch_style_init"]
@@ -26,10 +28,14 @@ class BatchNorm(nn.Module):
     and the output in the input's dtype. The normalization arithmetic runs
     in the input's dtype, as the encoders' ``BatchNormNamedStats`` does, or
     with ``normalize_fp32`` in fp32, as flax ``nn.BatchNorm`` in the heads
-    does. (torch's own ``F.batch_norm`` would store the unbiased variance.)"""
+    does. (torch's own ``F.batch_norm`` would store the unbiased variance.)
+    With ``update_stats`` False a train-mode forward normalizes by the batch
+    statistics and leaves the running ones alone: the recompute of a
+    checkpointed block (:func:`checkpointed`) sets it."""
 
     momentum = 0.9  # flax convention: the share kept of the running stat
     eps = 1e-5
+    update_stats = True
 
     def __init__(self, num_features: int, affine: bool = True, zero_init: bool = False,
                  normalize_fp32: bool = False):
@@ -61,10 +67,11 @@ class BatchNorm(nn.Module):
             xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp64 stays fp64
             mean = xf.mean(dim=dims)
             var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         dt = x.dtype
@@ -77,6 +84,28 @@ class BatchNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(ct).view(shape)
         return y.to(dt)
+
+
+@contextlib.contextmanager
+def _running_stats_frozen(module: nn.Module):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def checkpointed(block: nn.Module, x):
+    """``block(x)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward. The recompute leaves the
+    BatchNorm running statistics alone, so a step updates them once, as
+    the JAX package's ``nn.remat`` does; it still normalizes by (and
+    differentiates through) the recomputed batch statistics."""
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _running_stats_frozen(block)))
 
 
 class BasicBlock(nn.Module):
@@ -151,11 +180,17 @@ class ResNet(nn.Module):
     ``return_features=True`` path), or with ``features="pyramid"`` the
     5-level NHWC feature pyramid (stem/2, layer1/4, layer2/8, layer3/16,
     layer4/32) of the smp encoders that HookNet decodes; the stem level is
-    taken after ``relu(bn1(conv1))``, before the max-pool."""
+    taken after ``relu(bn1(conv1))``, before the max-pool.
+
+    ``remat``: each residual block of the stages in ``remat_stages``
+    (1-indexed; None for all four) runs :func:`checkpointed` when gradients
+    are recorded."""
 
     def __init__(self, stage_sizes, block_cls=BasicBlock, zero_init_residual: bool = False,
-                 groups: int = 1, width_per_group: int = 64):
+                 groups: int = 1, width_per_group: int = 64, remat: bool = False,
+                 remat_stages=None):
         super().__init__()
+        self.remat_stages = (tuple(remat_stages) if remat_stages else (1, 2, 3, 4)) if remat else ()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -181,8 +216,12 @@ class ResNet(nn.Module):
         stem = torch.relu(self.bn1(self.conv1(x)))
         x = self.maxpool(stem)
         levels = [stem]
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = layer(x)
+        for i, layer in enumerate((self.layer1, self.layer2, self.layer3, self.layer4)):
+            if i + 1 in self.remat_stages and torch.is_grad_enabled():
+                for block in layer:
+                    x = checkpointed(block, x)
+            else:
+                x = layer(x)
             levels.append(x)
         return levels
 
@@ -240,10 +279,12 @@ def torch_style_init(module: nn.Module, generator: torch.Generator) -> nn.Module
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
             elif isinstance(m, nn.Linear):
+                # drawn in fp32 whatever the storage dtype, so a seed gives
+                # a bf16 head the fp32 head's values, rounded
                 bound = 1.0 / math.sqrt(m.in_features)
-                m.weight.uniform_(-bound, bound, generator=generator)
-                if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
             elif isinstance(m, BatchNorm):
                 m.reset_parameters()
     return module

@@ -60,12 +60,10 @@ CLASS_NAMES = {"bcss": FT.BCSS_CLASSES, "paip": FT.PAIP_CLASSES}
 def _unsupported(args) -> list[str]:
     """Flag values the port cannot honour yet, each with its queue item of
     ``ROADMAP.md``."""
-    checks = (
-        (args.accum_steps > 1, f"--accum-steps {args.accum_steps}", FT.ACCUM_NOT_PORTED),
-        (args.world_size > 1, f"--world-size {args.world_size}",
-         "not ported yet, ROADMAP.md queue 1, distributed"),
-    )
-    return [f"{flag}: {why}" for bad, flag, why in checks if bad]
+    if args.world_size > 1:
+        return [f"--world-size {args.world_size}: not ported yet, ROADMAP.md queue 1, "
+                "distributed"]
+    return []
 
 
 def check_norm_stats(args, weights_path: str, logger) -> None:
@@ -110,6 +108,9 @@ def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     problems = _unsupported(args)
+    if args.accum_steps < 1 or args.batch_size % args.accum_steps:
+        problems.append(f"--batch-size {args.batch_size} must be divisible by --accum-steps "
+                        f"{args.accum_steps}")
     if problems:
         raise ValueError("; ".join(problems))
     dev = resolve_device(args.device)
@@ -177,21 +178,25 @@ def _data(args, class_names, logger):
 def _drain(pending, losses, stats) -> None:
     """Fetch the pending steps' metrics in one device-to-host copy (float64
     holds the counts exactly) and update the loss meter and the per-sample
-    count lists. A step's batch may be the epoch's short last one."""
+    count lists. A step's batch may be the epoch's short last one, or a
+    wrap-padded one whose ``valid`` mask keeps its pads out."""
     if not pending:
         return
     flat = torch.cat([torch.cat([m["loss"].double().view(1)]
-                                + [m[k].double().reshape(-1) for k in ("tp", "fp", "fn", "tn")])
+                                + [m[k].double().reshape(-1)
+                                   for k in ("valid", "tp", "fp", "fn", "tn") if k in m])
                       for m in pending]).cpu().numpy()
     off = 0
     for m in pending:
         shape = tuple(m["tp"].shape)  # (batch, classes) of this step
-        n = 1 + 4 * shape[0] * shape[1]
+        nv = shape[0] if "valid" in m else 0
+        n = 1 + nv + 4 * shape[0] * shape[1]
         row = flat[off : off + n]
         off += n
-        losses.update(float(row[0]), shape[0])
-        for lst, c in zip(stats, row[1:].reshape(4, *shape).astype(np.int64)):
-            lst.append(c)
+        keep = row[1 : 1 + nv] > 0.5 if nv else np.ones(shape[0], bool)
+        losses.update(float(row[0]), int(keep.sum()))
+        for lst, c in zip(stats, row[1 + nv :].reshape(4, *shape).astype(np.int64)):
+            lst.append(c[keep])
     pending.clear()
 
 
@@ -230,9 +235,14 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
                         compute_dtype="bfloat16" if args.amp else "float32")
     root, train_recs, load_fn, val_slides = _data(args, class_names, logger)
     # The reference keeps the last partial batch (drop_last=False,
-    # ssl_finetune.py:276); on one device it is genuinely short.
+    # ssl_finetune.py:276); on one device it is genuinely short and, as in
+    # the JAX CLI, split into short microbatches. Only a trailing batch that
+    # --accum-steps does not divide (where the JAX CLI's step raises) is
+    # wrap-padded to full size, its pads masked out of the Dice loss and the
+    # train metrics, as the JAX CLI does under a sharded mesh.
+    pad = len(train_recs) % args.batch_size % config.accum_steps != 0
     loader = TileBatchLoader(root, train_recs, batch_size=args.batch_size, load_fn=load_fn,
-                             seed=config.seed, drop_last=False, device=dev)
+                             seed=config.seed, drop_last=False, pad_last=pad, device=dev)
     logger.info(f"=> train tiles: {len(train_recs)}, steps/epoch: {len(loader)}")
     if len(loader) == 0:
         raise ValueError(f"no training tiles in {root}")
@@ -280,7 +290,8 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
                 if it == 0:
                     fill = time.time() - start
                 gen.manual_seed(view_seed(config.seed, epoch, it))
-                pending.append(step_fn(state, bimgs, bmasks, gen))
+                valid = loader.valid_mask(it) if pad else None
+                pending.append(step_fn(state, bimgs, bmasks, gen, valid=valid))
                 steps += 1
                 batch_time.update(time.time() - end)
                 end = time.time()
@@ -385,7 +396,8 @@ def build_parser():
                         help="accepted for parity; the port computes the decoder unpacked "
                         "(exact, the same weights)")
     parser.add_argument("--accum-steps", type=int, default=1,
-                        help="gradient accumulation; the port has 1 only")
+                        help="gradient accumulation: sequential microbatches a step, one Adam "
+                        "update on their mean gradient; must divide --batch-size")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="fine-tune on 4 in-memory synthetic slides of N tiles each, "
                         "slide 0 for validation (smoke mode)")

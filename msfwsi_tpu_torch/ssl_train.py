@@ -20,7 +20,10 @@ generator is seeded per ``(seed, epoch, step)``, so a resumed run draws the
 views an uninterrupted one drew. A run writes ``configs.txt``, ``log.txt``,
 ``error.txt`` on a crash, and ``checkpoint_{epoch:04d}.pth.tar`` every
 ``--save-freq`` epochs; ``--resume`` restores weights, BatchNorm
-statistics and Adam's state.
+statistics and the optimizer's state. The large-model memory path is the
+JAX CLI's: ``--inter-opt adafactor|fused_adafactor``, ``--inter-dtype
+bfloat16``, ``--accum-steps N`` (N must divide ``-b``), ``--use-ac`` and
+``--remat-stages``.
 
 The loop makes no host sync per step: the epoch's loss is one
 device-to-host fetch of the stacked step losses at the epoch's end.
@@ -75,14 +78,8 @@ NOOP_FLAGS = {
 def _unsupported(args) -> list[str]:
     """Flag values the port cannot honour yet, each with the queue item of
     ``ROADMAP.md`` that ports it."""
-    big = "ROADMAP.md queue 1, the large-model memory path"
     dist = "ROADMAP.md queue 1, distributed"
     checks = (
-        (args.inter_opt != "adam", f"--inter-opt {args.inter_opt}", big),
-        (args.inter_dtype != "float32", f"--inter-dtype {args.inter_dtype}", big),
-        (args.accum_steps > 1, f"--accum-steps {args.accum_steps}", big),
-        (args.use_ac, "--use-ac", big),
-        (args.remat_stages is not None, "--remat-stages", big),
         (args.model_parallel > 1, f"--model-parallel {args.model_parallel}", dist),
         (args.world_size > 1, f"--world-size {args.world_size}", dist),
     )
@@ -124,6 +121,9 @@ def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     problems = _unsupported(args)
+    if args.accum_steps < 1 or args.batch_size % args.accum_steps:
+        problems.append(f"--batch-size {args.batch_size} must be divisible by --accum-steps "
+                        f"{args.accum_steps}")
     if problems:
         raise ValueError("; ".join(problems))
     dev = resolve_device(args.device)
@@ -175,8 +175,13 @@ def _train(args, dev, defaults, cmdline: str, logger) -> dict:
         arch=args.arch, batch_size=args.batch_size, lr=args.lr, mask_ratio=args.mask_ratio,
         scale=args.scale, ms_lr=tuple(args.ms_lr), fuser_weights=tuple(args.fuser_weights),
         seed=args.seed if args.seed is not None else 0, amp=args.amp,
+        inter_opt=args.inter_opt, inter_dtype=args.inter_dtype, accum_steps=args.accum_steps,
+        use_ac=args.use_ac, remat_stages=tuple(args.remat_stages) if args.remat_stages else None,
     )
     logger.info(f"=> creating model '{args.arch}' (scale={args.scale}, K={config.scale**2})")
+    logger.info(f"=> fuser heads: {args.inter_opt}, {args.inter_dtype}; accum_steps "
+                f"{args.accum_steps}; activation checkpointing "
+                + (f"on (stages {config.remat_stages or 'all'})" if args.use_ac else "off"))
     logger.info(f"=> use init_lr of {config.init_lr:.4f} (sqrt-batch scaling)")
     aug_cfg = AugConfig(
         mean=tuple(args.mean), std=tuple(args.std), img_size=args.img_sz, grid=args.scale,
@@ -233,7 +238,7 @@ def _train(args, dev, defaults, cmdline: str, logger) -> dict:
             logger.info(f"=> loading checkpoint '{resume}'")
             if not C.restore_checkpoint(resume, state, dev):
                 logger.warning("=> torch-format resume restores weights/BN only; "
-                               "optimizer moments restart")
+                               "optimizer state restarts")
             # The name carries the completed epoch (checkpoint_{epoch:04d},
             # ssl_train.py:385): right even when --steps-per-epoch capped
             # the earlier epochs.
@@ -402,14 +407,18 @@ def build_parser():
     parser.add_argument("--data", metavar="DIR", help="path to dataset")
     parser.add_argument("--inter-opt", type=str, default="adam",
                         choices=("adam", "adafactor", "fused_adafactor"),
-                        help="fuser-head optimizer; the port has adam only")
+                        help="fuser-head optimizer: adam (the reference's), adafactor, or "
+                        "fused_adafactor (the big head weights updated from their gradient's "
+                        "outer-product factors, no dense gradient)")
     parser.add_argument("--inter-dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
-                        help="fuser-head parameter storage dtype; the port has float32 only")
+                        help="fuser-head Linear storage dtype (their BatchNorm stays fp32)")
     parser.add_argument("--accum-steps", type=int, default=1,
-                        help="gradient accumulation; the port has 1 only")
+                        help="gradient accumulation: sequential microbatches a step, one update "
+                        "on their mean gradient; must divide --batch-size")
     parser.add_argument("--remat-stages", type=int, nargs="*", default=None,
-                        help="with --use-ac: encoder stages to checkpoint (not ported)")
+                        help="with --use-ac: the encoder stages (1-4) to checkpoint (default: "
+                        "all)")
     parser.add_argument("--c16-mode", type=str, default="train", choices=("train", "all"),
                         help="Camelyon16 slide pool: train = train_ids only (reference CLI "
                         "default), all = imagesTr + imagesTs (camelyon.py:56-83)")

@@ -3,8 +3,10 @@
 Native format: the reference's ``checkpoint_{epoch:04d}.pth.tar``
 (``ssl_train.py:375-387``), a ``torch.save`` of ``{epoch, arch, state_dict,
 optimizer, scaler}`` with the state dict under the DDP ``module.`` prefix
-and ``optimizer`` the Adam ``state_dict()``, so a resume restores weights,
-BatchNorm statistics, Adam's moments and its step. A ``.pth.tar`` that the
+and ``optimizer`` the optimizer's ``state_dict()`` (the reference's Adam;
+with ``--inter-opt adafactor|fused_adafactor`` one per optimizer, by name),
+so a resume restores weights (bf16 fuser heads in bf16), BatchNorm
+statistics, the optimizer's moments or factored statistics and its step. A ``.pth.tar`` that the
 JAX package wrote (``save_torch_file``) has no optimizer: it restores
 weights and BatchNorm statistics only. The JAX package's Orbax directories
 are not read; ``tools/export_torch.py`` converts them. Fine-tuning keeps
@@ -138,8 +140,8 @@ def load_torch_file(path: str, map_location="cpu", kind: str = "ssl") -> dict:
 def restore_checkpoint(path: str, state, map_location) -> bool:
     """Load a ``.pth.tar`` into ``state`` in place: the model's weights and
     BatchNorm statistics (keys with or without ``module.``) and, when the
-    file has them, Adam's state and step. Returns whether the optimizer was
-    restored (False for a file the JAX package wrote)."""
+    file has them, the optimizer's state and step. Returns whether the
+    optimizer was restored (False for a file the JAX package wrote)."""
     obj = _load(path, map_location)
     sd = obj.get("state_dict", obj)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
@@ -147,7 +149,11 @@ def restore_checkpoint(path: str, state, map_location) -> bool:
     opt = obj.get("optimizer")
     if not opt:
         return False
-    state.optimizer.load_state_dict(opt)
+    try:
+        state.optimizer.load_state_dict(opt)
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"{path}: its optimizer state does not fit this run's optimizer "
+                         f"(another --inter-opt?): {e!r}") from e
     steps = [s["step"] for s in state.optimizer.state.values() if "step" in s]
     state.step = int(steps[0]) if steps else 0
     return True

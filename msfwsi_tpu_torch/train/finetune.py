@@ -13,7 +13,10 @@ fused augment-and-step (port of ``msfwsi_tpu/train/finetune.py``).
     background ignored (``ssl_finetune.py:440-447``).
 
 Under ``amp`` the forward runs in ``torch.autocast`` bf16 with fp32
-parameters, BatchNorm statistics and loss. Nothing is compiled.
+parameters, BatchNorm statistics and loss. ``accum_steps`` > 1 runs the
+interleaved microbatches of ``train/ssl.py::slice_microbatch`` and one
+Adam update on their mean gradient, the Dice loss averaged per microbatch;
+``use_ac`` checkpoints the branch encoders' blocks. Nothing is compiled.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..data.pipeline import AugConfig, make_seg_train_views
 from ..models.hooknet import HookNet, build_hooknet
 from ..ops.losses import dice_loss
 from ..ops.metrics import get_stats
+from .ssl import accumulate, slice_microbatch
 
 __all__ = [
     "PAIP_CLASSES",
@@ -46,13 +50,13 @@ __all__ = [
 PAIP_CLASSES = ["tissue", "whole", "viable"]
 BCSS_CLASSES = ["tumor", "stroma", "infla", "necr", "other"]
 
-ACCUM_NOT_PORTED = "not ported yet, ROADMAP.md queue 1, the large-model memory path"
-
 
 @dataclasses.dataclass(frozen=True)
 class FinetuneConfig:
     """Fine-tuning hyperparameters; defaults mirror the reference's flags.
-    The port has ``accum_steps=1`` only."""
+    ``accum_steps``: sequential microbatches a step (see
+    ``train/ssl.py::SSLConfig``); ``use_ac``: per-block activation
+    checkpointing of both branch encoders."""
 
     arch: str = "resnet18"
     class_names: Sequence[str] = tuple(BCSS_CLASSES)
@@ -62,10 +66,11 @@ class FinetuneConfig:
     amp: bool = True
     seed: int = 3407
     accum_steps: int = 1
+    use_ac: bool = False
 
     def __post_init__(self):
-        if self.accum_steps != 1:
-            raise ValueError(f"--accum-steps {self.accum_steps}: {ACCUM_NOT_PORTED}")
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps {self.accum_steps} < 1")
 
     @property
     def num_fg(self) -> int:
@@ -99,7 +104,8 @@ def create_finetune_state(config: FinetuneConfig, device="cuda",
     dev = resolve_device(device)
     if model is None:
         gen = torch.Generator().manual_seed(config.seed)
-        model = build_hooknet(gen, device=dev, arch=config.arch, classes=config.num_classes)
+        model = build_hooknet(gen, device=dev, arch=config.arch, classes=config.num_classes,
+                              remat=config.use_ac)
     model = model.to(dev)
     return SegTrainState(model=model, optimizer=make_finetune_optimizer(model, config))
 
@@ -144,20 +150,34 @@ def finetune_loss_fn(model: HookNet, batch: dict, lam: float, num_fg: int, amp: 
 
 
 def finetune_train_step(state: SegTrainState, batch: dict, lam: float, num_fg: int,
-                        amp: bool = False) -> dict:
+                        amp: bool = False, accum_steps: int = 1) -> dict:
     """One step in place on ``state``. Returns device tensors: the loss and
     the per-sample (N, num_fg) confusion counts ``tp/fp/fn/tn`` of the
     target argmax against the target mask, background ignored
     (``get_stats(pred-1, mask-1, ignore_index=-1)``), and ``valid`` when
     the batch has one. Reading them synchronizes, so the caller decides
-    when."""
+    when. With ``accum_steps`` > 1 the loss is the mean of the
+    microbatches' (a microbatch all of padding gives 0) and the counts are
+    in the batch's sample order."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss, tgt_logits = finetune_loss_fn(model, batch, lam, num_fg, amp)
-    loss.backward()
+
+    def loss_fn(mb):
+        loss, logits = finetune_loss_fn(model, mb, lam, num_fg, amp)
+        return loss, logits.detach()
+
+    parts = accumulate(model, accum_steps, lambda i: slice_microbatch(batch, accum_steps, i),
+                       loss_fn)
     state.optimizer.step()
     state.step += 1
+    loss = sum(loss for loss, _ in parts) * (1.0 / accum_steps)
+    tgt_logits = parts[0][1]
+    if accum_steps > 1:
+        # undo the interleaved partition: sample j is row j // accum of
+        # microbatch j % accum
+        logits = [lg for _, lg in parts]
+        tgt_logits = torch.stack(logits, dim=1).reshape(-1, *logits[0].shape[1:])
     with torch.no_grad():
         pred = tgt_logits.float().argmax(dim=-1)
         tp, fp, fn, tn = get_stats(pred - 1, batch["target_mask"].long() - 1, num_fg,
@@ -188,6 +208,7 @@ def make_fused_finetune_step(config: FinetuneConfig, aug_cfg: AugConfig, device=
         batch = {"context": ctx, "target": tgt, "context_mask": cm, "target_mask": tm}
         if valid is not None:
             batch["valid"] = valid.to(dev)
-        return finetune_train_step(state, batch, lam, config.num_fg, amp=config.amp)
+        return finetune_train_step(state, batch, lam, config.num_fg, amp=config.amp,
+                                   accum_steps=config.accum_steps)
 
     return step

@@ -2,11 +2,19 @@
 augment-and-step (port of ``msfwsi_tpu/train/ssl.py``).
 
 One step is: forward of both SimSiam views through :class:`MSFWSI`, the
-MSF-WSI loss, backward, Adam on three learning-rate groups keyed on the
-``context_/target_/inter_`` parameter prefixes with the sqrt-batch lr
-scaling, and the BatchNorm running-stat update (in the forward). Under
-``amp`` the forward runs in ``torch.autocast`` bf16 with fp32 parameters,
-BN statistics and loss. PyTorch runs eagerly: nothing is compiled.
+MSF-WSI loss, backward, the optimizer on three learning-rate groups keyed
+on the ``context_/target_/inter_`` parameter prefixes with the sqrt-batch
+lr scaling, and the BatchNorm running-stat update (in the forward). Under
+``amp`` the forward runs in ``torch.autocast`` bf16 with fp32 parameters
+(the fuser heads' in bf16 with ``inter_dtype="bfloat16"``), BN statistics
+and loss. PyTorch runs eagerly: nothing is compiled.
+
+The large-model memory path, as the JAX package's: Adafactor on the fuser
+heads (``inter_opt="adafactor"``), or the fused outer-product Adafactor on
+their big weights (``"fused_adafactor"``, ``train/factored.py``), bf16
+head storage, gradient accumulation over interleaved microbatches
+(``accum_steps``) and per-block activation checkpointing (``use_ac``,
+``remat_stages``).
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from .. import resolve_device
 from ..data.pipeline import AugConfig, make_ssl_views, target_keys
 from ..models.backbone import MSFWSI, build_msfwsi
 from ..ops.losses import msfwsi_loss
+from .factored import (Adafactor, FactorStash, FusedOuterAdafactor, OptimizerGroups,
+                       is_factored_kernel)
 
 __all__ = [
     "SSLConfig",
@@ -30,6 +40,7 @@ __all__ = [
     "target_keys",
     "ssl_loss_fn",
     "ssl_train_step",
+    "slice_microbatch",
     "make_fused_step",
     "view_seed",
     "load_imagenet_encoders",
@@ -39,8 +50,15 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class SSLConfig:
     """Pretrain hyperparameters; defaults mirror the reference's flags.
-    The port has the reference optimizer only: ``inter_opt="adam"``,
-    ``accum_steps=1`` and no activation checkpointing (``use_ac``)."""
+
+    ``inter_opt``: the fuser heads' optimizer, ``adam`` (the reference's),
+    ``adafactor`` or ``fused_adafactor``; ``inter_dtype``: their storage
+    dtype, ``float32`` or ``bfloat16``; ``use_ac``: per-block activation
+    checkpointing of the encoders, of the stages in ``remat_stages``
+    (1-indexed; None for all); ``accum_steps``: sequential microbatches a
+    step, one optimizer update on the mean of their gradients, each
+    microbatch's BatchNorm on its own statistics (the running ones take
+    ``accum_steps`` updates a step), as the JAX package's."""
 
     arch: str = "resnet18"
     batch_size: int = 32  # global batch
@@ -53,18 +71,21 @@ class SSLConfig:
     amp: bool = True  # bf16 compute
     use_ac: bool = False
     inter_opt: str = "adam"
+    inter_dtype: str = "float32"
+    remat_stages: Sequence[int] | None = None
     accum_steps: int = 1
     # False: target views stay in spatial order and the jigsaw shuffle is
     # applied to the features (same result, no view-stack permute).
     shuffle_views: bool = False
 
     def __post_init__(self):
-        if self.inter_opt != "adam":
-            raise ValueError(f"inter_opt {self.inter_opt!r}: the port has only 'adam'")
-        if self.accum_steps != 1:
-            raise ValueError(f"accum_steps {self.accum_steps}: the port has only 1")
-        if self.use_ac:
-            raise ValueError("use_ac: the port has no activation checkpointing")
+        if self.inter_opt not in INTER_OPTS:
+            raise ValueError(f"unknown inter_opt {self.inter_opt!r} (one of {INTER_OPTS})")
+        if self.inter_dtype not in INTER_DTYPES:
+            raise ValueError(f"unknown inter_dtype {self.inter_dtype!r} (one of "
+                             f"{tuple(INTER_DTYPES)})")
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps {self.accum_steps} < 1")
 
     @property
     def init_lr(self) -> float:
@@ -77,14 +98,25 @@ class SSLConfig:
             scale=self.scale,
             mask_ratio=self.mask_ratio / 100,
             views_shuffled=self.shuffle_views,
+            inter_param_dtype=INTER_DTYPES[self.inter_dtype],
+            remat=self.use_ac,
+            remat_stages=self.remat_stages,
         )
+
+
+INTER_OPTS = ("adam", "adafactor", "fused_adafactor")
+INTER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
 class SSLTrainState:
+    """The model, its optimizer and step count; ``stash`` holds the fused
+    Adafactor's gradient factors (``inter_opt="fused_adafactor"``)."""
+
     model: MSFWSI
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | OptimizerGroups
     step: int = 0
+    stash: FactorStash | None = None
 
 
 def _param_group(name: str) -> str:
@@ -95,31 +127,56 @@ def _param_group(name: str) -> str:
     raise ValueError(f"parameter {name} not in any optimizer group")
 
 
-def make_ssl_optimizer(model: MSFWSI, config: SSLConfig) -> torch.optim.Adam:
-    """Adam over three groups at ``init_lr * ms_lr[i]``; no weight decay
-    (the reference parses ``--wd`` but never passes it to Adam)."""
-    groups = {"context": [], "target": [], "inter": []}
+def make_ssl_optimizer(model: MSFWSI, config: SSLConfig, stash: FactorStash | None = None):
+    """The groups of the JAX package's ``make_ssl_optimizer``, each at
+    ``init_lr * ms_lr[i]``; no weight decay (the reference parses ``--wd``
+    but never passes it to Adam). With ``inter_opt="adam"``, one Adam over
+    the three groups (the reference's). Otherwise an
+    :class:`OptimizerGroups`: Adam on ``context`` and ``target``,
+    :class:`Adafactor` on ``inter``, and with ``fused_adafactor`` the
+    :class:`FusedOuterAdafactor` on the factored inter-head weights
+    (``inter_fac``), fed by ``stash``."""
+    fused = config.inter_opt == "fused_adafactor"
+    if fused and stash is None:
+        raise ValueError("inter_opt 'fused_adafactor' needs the FactorStash its taps fill")
+    groups = {"context": [], "target": [], "inter": [], "inter_fac": []}
     for name, p in model.named_parameters():
-        groups[_param_group(name)].append(p)
-    return torch.optim.Adam(
-        [
-            {"params": groups[g], "lr": config.init_lr * m}
-            for g, m in zip(("context", "target", "inter"), config.ms_lr)
-        ],
-        betas=(0.9, 0.999),
-        eps=1e-8,
-    )
+        group = _param_group(name)
+        if fused and is_factored_kernel(name, p):
+            group = "inter_fac"
+        groups[group].append(p)
+    lrs = {g: config.init_lr * m for g, m in zip(("context", "target", "inter"), config.ms_lr)}
+
+    def adam(names):
+        return torch.optim.Adam([{"params": groups[g], "lr": lrs[g]} for g in names],
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    if config.inter_opt == "adam":
+        return adam(("context", "target", "inter"))
+    opts = {"adam": adam(("context", "target")),
+            "adafactor": Adafactor(groups["inter"], lr=lrs["inter"])}
+    if fused:
+        opts["fused_adafactor"] = FusedOuterAdafactor(groups["inter_fac"], lr=lrs["inter"],
+                                                      stash=stash)
+    return OptimizerGroups(opts)
 
 
-def create_ssl_state(config: SSLConfig, device="cuda", model: MSFWSI | None = None) -> SSLTrainState:
+def create_ssl_state(config: SSLConfig, device="cuda",
+                     model: MSFWSI | None = None) -> SSLTrainState:
     """Model (initialized from ``config.seed`` unless given) and optimizer
-    on ``device``."""
+    on ``device``; with ``fused_adafactor`` the factored weights' layers
+    are tapped into the state's stash."""
     dev = resolve_device(device)
     if model is None:
         gen = torch.Generator().manual_seed(config.seed)
         model = build_msfwsi(gen, device=dev, **config.model_kwargs())
     model = model.to(dev)
-    return SSLTrainState(model=model, optimizer=make_ssl_optimizer(model, config))
+    stash = None
+    if config.inter_opt == "fused_adafactor":
+        stash = FactorStash()
+        model.tap_factored(stash)
+    return SSLTrainState(model=model, optimizer=make_ssl_optimizer(model, config, stash),
+                         stash=stash)
 
 
 def ssl_loss_fn(model: MSFWSI, batch, fuser_weights: Sequence[float]):
@@ -132,20 +189,79 @@ def ssl_loss_fn(model: MSFWSI, batch, fuser_weights: Sequence[float]):
     return msfwsi_loss(outputs, fuser_weights)
 
 
+def slice_microbatch(batch, accum_steps: int, i: int):
+    """The i-th of ``accum_steps`` microbatches of ``batch`` (a tensor or a
+    dict of tensors whose leading axes are B or sample-major B*K): the
+    samples whose index satisfies ``index % accum_steps == i``, the JAX
+    package's interleaved partition. Raises when ``accum_steps`` does not
+    divide B."""
+    leaves = batch.values() if isinstance(batch, dict) else (batch,)
+    B = min(a.shape[0] for a in leaves)
+    if B % accum_steps:
+        raise ValueError(f"batch size {B} not divisible by accum_steps {accum_steps}")
+
+    def sl(a):
+        m, rest = a.shape[0] // B, a.shape[1:]
+        return a.reshape(B // accum_steps, accum_steps, m, *rest)[:, i].reshape(-1, *rest)
+
+    return {k: sl(v) for k, v in batch.items()} if isinstance(batch, dict) else sl(batch)
+
+
+def accumulate(model, accum_steps: int, microbatch_fn, loss_fn, stash=None) -> list:
+    """Forward and backward of ``accum_steps`` microbatches in turn:
+    ``loss_fn(microbatch_fn(i))`` returns ``(loss, detached extra)``; each
+    microbatch is dropped before the next is built. The raw gradients are
+    summed (the ``.grad`` accumulation), then scaled by ``1/accum_steps``
+    once; the dY in ``stash`` are scaled as the optimizer takes them
+    (``FactorStash.dy_scale``). Returns each microbatch's ``(loss,
+    extra)``, the loss detached."""
+    out = []
+    for i in range(accum_steps):
+        loss, extra = loss_fn(microbatch_fn(i))
+        loss.backward()
+        out.append((loss.detach(), extra))
+        del loss, extra
+    if accum_steps > 1:
+        inv = 1.0 / accum_steps
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(inv)
+        if stash is not None:
+            stash.dy_scale = inv
+    return out
+
+
 def ssl_train_step(state: SSLTrainState, batch, fuser_weights: Sequence[float],
-                   amp: bool = False) -> dict:
+                   amp: bool = False, accum_steps: int = 1, microbatch_fn=None) -> dict:
     """One step in place on ``state``; returns the detached loss tensors
-    (reading them synchronizes, so the caller decides when)."""
+    (reading them synchronizes, so the caller decides when). With
+    ``accum_steps`` > 1 the step runs that many microbatches (the
+    interleaved slices of ``batch``, or ``microbatch_fn(i)``) and one
+    optimizer update on their mean gradient; the losses are their means."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
     device_type = next(model.parameters()).device.type
-    with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
-        loss, per_path = ssl_loss_fn(model, batch, fuser_weights)
-    loss.backward()
-    state.optimizer.step()
+    if microbatch_fn is None:
+        microbatch_fn = lambda i: slice_microbatch(batch, accum_steps, i)  # noqa: E731
+
+    def loss_fn(mb):
+        with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
+            loss, per_path = ssl_loss_fn(model, mb, fuser_weights)
+        return loss, {k: v.detach() for k, v in per_path.items()}
+
+    try:
+        parts = accumulate(model, accum_steps, microbatch_fn, loss_fn, state.stash)
+        state.optimizer.step()
+    finally:
+        if state.stash is not None:
+            state.stash.clear()
     state.step += 1
-    return {"loss": loss.detach(), **{f"loss_{k}": v.detach() for k, v in per_path.items()}}
+    inv = 1.0 / accum_steps
+    metrics = {"loss": sum(loss for loss, _ in parts) * inv}
+    for k in parts[0][1]:
+        metrics[f"loss_{k}"] = sum(per_path[k] for _, per_path in parts) * inv
+    return metrics
 
 
 def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda"):
@@ -156,16 +272,27 @@ def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda"):
     The returned ``step(state, tiles_u8, generator=None, view_params=None)``
     draws the view parameters from ``generator`` (on ``device``) or applies
     ``view_params`` (as ``data.pipeline.sample_ssl_views`` returns them).
+    With ``accum_steps`` > 1 each microbatch's views are built from its own
+    slice of the tiles (``slice_microbatch``), drawn in turn from
+    ``generator``, or from ``view_params[i]`` (a list, one entry per
+    microbatch): the full batch's views never exist at once.
     """
     dev = resolve_device(device)
     fuser_weights = tuple(config.fuser_weights)
+    accum = config.accum_steps
 
     def step(state: SSLTrainState, tiles_u8, generator=None, view_params=None):
-        batch = make_ssl_views(
-            tiles_u8.to(dev), aug_cfg, generator,
-            shuffle_views=config.shuffle_views, params=view_params,
-        )
-        return ssl_train_step(state, batch, fuser_weights, amp=config.amp)
+        tiles_u8 = tiles_u8.to(dev)
+        if accum > 1 and view_params is not None and len(view_params) != accum:
+            raise ValueError(f"{len(view_params)} view parameter sets for {accum} microbatches")
+
+        def microbatch_fn(i):
+            params = view_params if accum == 1 or view_params is None else view_params[i]
+            return make_ssl_views(slice_microbatch(tiles_u8, accum, i), aug_cfg, generator,
+                                  shuffle_views=config.shuffle_views, params=params)
+
+        return ssl_train_step(state, None, fuser_weights, amp=config.amp, accum_steps=accum,
+                              microbatch_fn=microbatch_fn)
 
     return step
 
@@ -189,5 +316,5 @@ def load_imagenet_encoders(state: SSLTrainState, torch_state_dict: dict,
            if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
     for encoder in (state.model.context_encoder, state.model.target_encoder):
         encoder.load_state_dict(enc, strict=True)
-    state.optimizer = make_ssl_optimizer(state.model, config)
+    state.optimizer = make_ssl_optimizer(state.model, config, state.stash)
     return state

@@ -253,9 +253,9 @@ def test_config_lr_and_accum():
     config = FT.FinetuneConfig(batch_size=16, lr=1e-3)
     assert config.init_lr == pytest.approx(1e-3 * 0.5)
     assert config.num_classes == 6
-    with pytest.raises(ValueError,
-                       match=r"not ported yet, ROADMAP\.md queue 1, the large-model memory path"):
-        FT.FinetuneConfig(accum_steps=2)
+    assert FT.FinetuneConfig(accum_steps=2, use_ac=True).accum_steps == 2
+    with pytest.raises(ValueError, match="accum_steps 0"):
+        FT.FinetuneConfig(accum_steps=0)
 
 
 def _ssl_checkpoint(tmp_path, arch=ARCH):
@@ -431,9 +431,14 @@ def test_recipes_parse_verbatim(name, argv):
 
 
 def test_accum_steps_raises_naming_the_queue_item(tmp_path):
-    with pytest.raises(ValueError,
-                       match=r"not ported yet, ROADMAP\.md queue 1, the large-model memory path"):
-        ssl_finetune.main(["--accum-steps", "2", "--synthetic", "2", "--device", "cpu",
+    """``--accum-steps`` is ported: a value that does not divide the batch
+    raises before the run makes its log dir, as the JAX CLI exits; so does
+    ``--world-size`` > 1, naming its queue item."""
+    with pytest.raises(ValueError, match="--batch-size 64 must be divisible by --accum-steps 3"):
+        ssl_finetune.main(["--accum-steps", "3", "--synthetic", "2", "--device", "cpu",
+                           "--log-dir", str(tmp_path / "run")])
+    with pytest.raises(ValueError, match=r"not ported yet, ROADMAP\.md queue 1, distributed"):
+        ssl_finetune.main(["--world-size", "2", "--synthetic", "2", "--device", "cpu",
                            "--log-dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()
     with pytest.raises(RuntimeError if not torch.cuda.is_available() else ValueError,

@@ -149,7 +149,10 @@ def test_config_and_optimizer_groups():
     assert sum(len(g["params"]) for g in opt.param_groups) == len(list(model.parameters()))
     assert all(g["betas"] == (0.9, 0.999) and g["eps"] == 1e-8 and g["weight_decay"] == 0
                for g in opt.param_groups)
-    for bad in ({"inter_opt": "adafactor"}, {"accum_steps": 2}, {"use_ac": True}):
+    # the memory path's values are accepted; values no path has raise
+    for good in ({"inter_opt": "adafactor"}, {"accum_steps": 2}, {"use_ac": True}):
+        assert S.SSLConfig(**good)
+    for bad in ({"inter_opt": "sgd"}, {"accum_steps": 0}, {"inter_dtype": "float16"}):
         with pytest.raises(ValueError):
             S.SSLConfig(**bad)
 
