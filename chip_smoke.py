@@ -138,9 +138,24 @@ Phases, each logged with a timestamp:
    step) and a resume whose model and optimizer states equal the
    checkpoint's; one fused HookNet fine-tuning step at resnet18 b64,
    accum 2, no launch;
-22. the kernels JSON line (each kernel's count on every path: 0 on the
-   fine-tuning, inference and serving paths, K1's on the SSL runs), then
-   the result line.
+22. distributed, in two child processes with their own time limits: (a)
+   ``ssl_train.main`` with the recipe's ``--multiprocessing-distributed
+   --world-size 1 --rank 0`` (resnet18, b32, scale 4, amp, 7 epochs of 1
+   step): an NCCL group of one formed, K1 4 launches a step, the losses
+   within bf16's 2e-2 of the same run without the flags, tile views/s over
+   the last 6 steps beside phase "slice"'s; (b) two ranks on the one card
+   over gloo (NCCL takes one rank a device): which collectives gloo takes
+   on CUDA tensors, then at resnet10 b8 (fp32, TF32 off, cuDNN
+   deterministic) the fused SSL step at accum 1 and 2, the fused Adafactor
+   on bf16 heads, ``--model-parallel 2`` with Adam and with the fused
+   Adafactor, and a HookNet step with a wrap-padded trailing batch, each
+   against one process at the global batch on the card under the CPU
+   tests' bounds (the fused Adafactor's ``v_row`` / ``v_col`` after the
+   step too), and the SSL step under amp on bf16 views (K1 4 launches a
+   rank; held to Adam's one-step bound);
+23. the kernels JSON line (each kernel's count on every path: 0 on the
+   fine-tuning, inference and serving paths, K1's on the SSL runs and on
+   each rank of the distributed ones), then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
 watchdog dumps the stacks and exits if the run hangs. Without a CUDA device
@@ -160,9 +175,10 @@ import sys
 import tempfile
 import time
 
-# A hang must end in a traceback well before any outer time limit: the
-# whole run, build and profile included, takes about five minutes on an H100.
-WATCHDOG_S = 480
+# A hang must end in a traceback well before any outer time limit (1200 s):
+# the whole run, build and profile included, took 421.6-464.7 s on an H100
+# at 700 W; the margin is for a slower host or a card capped below 700 W.
+WATCHDOG_S = 720
 T0 = time.perf_counter()
 
 MAIN_SHAPES = ((32, 224, 224, 3), (32, 1024, 1024, 3))
@@ -1948,6 +1964,428 @@ def phase_memory(dev, root, tmp, smi_line):
             "ft_launches": ft_launches, "summary": summary}
 
 
+# ---------------------------------------------------------------- distributed
+# Phase "distributed" runs in child processes, each part with its own time
+# limit: part (a) as ``python3 chip_smoke.py --distributed-part nccl
+# ARGS_JSON``, which prints its readings as one ``DIST_RESULT {...}`` line;
+# part (b) as two spawned ranks.
+DIST_PART_TIMEOUT_S = {"nccl": 150, "gloo": 150}
+DIST_SSL = dict(arch="resnet10", batch_size=8, scale=2, amp=False)
+DIST_CASES = {  # name: (SSLConfig fields, --model-parallel)
+    "ssl_accum1": ({}, 1),
+    "ssl_accum2": ({"accum_steps": 2}, 1),
+    "fused_adafactor_bf16": ({"inter_opt": "fused_adafactor", "inter_dtype": "bfloat16"}, 1),
+    "model_parallel_2": ({}, 2),
+    # the Gram products summed over the model group
+    "model_parallel_2_fused": ({"inter_opt": "fused_adafactor"}, 2),
+    # the main path's bf16 views and amp: K1 runs on half-precision views only
+    "ssl_amp": ({"amp": True}, 1),
+}
+
+
+def _dist_ssl(extra: dict):
+    """The SSL config and views' config of a DIST_CASES entry."""
+    from msfwsi_tpu_torch.data.pipeline import AugConfig
+    from msfwsi_tpu_torch.train.ssl import SSLConfig
+
+    config = SSLConfig(**{**DIST_SSL, **extra})
+    return config, AugConfig(grid=config.scale,
+                             compute_dtype="bfloat16" if config.amp else "float32")
+DIST_FT = dict(arch="resnet10", class_names=("a", "b", "c"), batch_size=8, amp=False)
+DIST_VALID = (1, 1, 1, 0, 1, 1, 0, 0)  # 5 real tiles, wrap-padded per rank to 4 + 4
+
+
+def _run_child(args: list, timeout: float) -> dict:
+    """Run this script with ``args`` in its own process group, echo its
+    output, kill the group at ``timeout``; returns its DIST_RESULT."""
+    import signal
+
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out[-4000:], flush=True)
+        raise AssertionError(f"distributed part {args[1]} exceeded {timeout} s") from None
+    result = None
+    for line in out.splitlines():
+        if line.startswith("DIST_RESULT "):
+            result = json.loads(line[len("DIST_RESULT "):])
+        else:
+            print(f"    | {line}", flush=True)
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"distributed part {args[1]} exited {proc.returncode}")
+    return result
+
+
+def _dist_part_nccl(root: str, logs: str) -> dict:
+    """``ssl_train.main`` with the recipe's ``--multiprocessing-distributed
+    --world-size 1 --rank 0`` (one card: a group of one, formed in this
+    process over NCCL) and without them, resnet18 b32 scale 4 amp, 7 epochs
+    of 1 step (the rate over the last 6); K1 counted over each run."""
+    from msfwsi_tpu_torch import ssl_train
+    from msfwsi_tpu_torch.diag import datapath as DP
+    from msfwsi_tpu_torch.ops.cuda import colorops as K
+
+    out = {}
+    for name, extra in (("no_group", ()), ("recipe", ("--multiprocessing-distributed",
+                                                      "--world-size", "1", "--rank", "0"))):
+        K.LAUNCHES = 0  # the count to 0 just before the path
+        res = ssl_train.main(DP.cli_argv(root, os.path.join(logs, name), epochs=7, extra=(
+            "--steps-per-epoch", "1", *extra)))
+        out[name] = {"launches": K.LAUNCHES, "steps": sum(e["steps"] for e in res["epochs"]),
+                     "losses": [e["loss"] for e in res["epochs"]],
+                     "group": res["process_group"], "views_per_s": DP.cli_rate(res, 32)}
+        del res
+    return out
+
+
+def _factor_stats(state) -> dict:
+    """``{weight name: {"v_row", "v_col"}}`` of the fused Adafactor's state
+    on the CPU (empty without one), a split weight's factors gathered over
+    the model group (a collective: every rank calls it)."""
+    from msfwsi_tpu_torch.parallel import tp
+
+    fused = getattr(state.optimizer, "optimizers", {}).get("fused_adafactor")
+    if fused is None:
+        return {}
+    sd = tp.gather_optimizer_state(state.optimizer, state.model)["fused_adafactor"]
+    names = {p: n for n, p in state.model.named_parameters()}
+    params = [p for g in fused.param_groups for p in g["params"]]
+    return {names[params[int(i)]]: {k: st[k].float().cpu() for k in ("v_row", "v_col")}
+            for i, st in sd["state"].items()}
+
+
+def _dist_worker(rank: int, store: str, tiles, masks, out_dir: str):
+    """One of two ranks on the one card over gloo: the collectives gloo
+    takes on CUDA tensors, this rank's half of the one-process references,
+    then each case's fused step on this rank's rows (K1 counted per rank)
+    and the fine-tuning step on its rows and pads. Each stage timed."""
+    import torch
+    import torch.distributed as dist
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig
+    from msfwsi_tpu_torch.models.hooknet import build_hooknet
+    from msfwsi_tpu_torch.ops.cuda import colorops as K
+    from msfwsi_tpu_torch.parallel import tp
+    from msfwsi_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from msfwsi_tpu_torch.train import finetune as FT
+    from msfwsi_tpu_torch.train import ssl as S
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    seconds = {"init": time.perf_counter() - t0}
+    takes = {}
+    x = torch.ones(4, device=dev)
+    for op, call in (("all_reduce", lambda: dist.all_reduce(x.clone())),
+                     ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+                     ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in "ab"],
+                                                            x))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            takes[op] = True
+        except (RuntimeError, ValueError) as e:
+            takes[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    t1 = time.perf_counter()
+    _dist_references(dev, tiles, masks, os.path.join(out_dir, f"one_rank{rank}.pt"),
+                     [*DIST_CASES, "hooknet_trailing"][rank::2])
+    seconds["references"] = time.perf_counter() - t1
+    dist.barrier()
+    out = {"takes": takes, "cases": {}, "seconds": seconds}
+    t1 = time.perf_counter()
+    for name, (extra, mp) in DIST_CASES.items():
+        config, aug = _dist_ssl(extra)
+        mesh = make_mesh(MeshSpec(model=mp))
+        state = S.create_ssl_state(config, device=dev, mesh=mesh)
+        step = S.make_fused_step(config, aug, device=dev, mesh=mesh)
+        n = tiles.shape[0] // mesh.data
+        part = torch.from_numpy(tiles[mesh.data_rank * n : (mesh.data_rank + 1) * n]).to(dev)
+        K.LAUNCHES = 0  # this rank's count to 0 just before its step
+        loss = float(step(state, part, torch.Generator(device=dev).manual_seed(7))["loss"])
+        launches = K.LAUNCHES
+        full = {k: v.cpu() for k, v in tp.full_state_dict(state.model).items()}
+        factors = _factor_stats(state)
+        if rank == 0:
+            torch.save({"state": full, "factors": factors}, os.path.join(out_dir, f"{name}.pt"))
+        out["cases"][name] = {"loss": loss, "launches": launches}
+        del state, step, full
+    config = FT.FinetuneConfig(**DIST_FT)
+    mesh = make_mesh()
+    model = build_hooknet(torch.Generator().manual_seed(0), arch=config.arch,
+                          classes=config.num_classes)
+    state = FT.create_finetune_state(config, device=dev, model=model, mesh=mesh)
+    step = FT.make_fused_finetune_step(config, AugConfig(), device=dev, mesh=mesh)
+    sl = slice(rank * 4, (rank + 1) * 4)
+    valid = torch.tensor(DIST_VALID[sl], dtype=torch.bool)
+    m = step(state, torch.from_numpy(tiles[sl]).to(dev), torch.from_numpy(masks[sl]).to(dev),
+             torch.Generator(device=dev).manual_seed(7), valid=valid)
+    out["cases"]["hooknet_trailing"] = {"loss": float(m["loss"]), "launches": 0}
+    if rank == 0:
+        torch.save({"state": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    "factors": {}}, os.path.join(out_dir, "hooknet_trailing.pt"))
+    seconds["cases"] = time.perf_counter() - t1
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _dist_compare(name, one, two, lr, bf16=False, finetune=False, amp=False,
+                  inter_opt="adam") -> dict:
+    """Distances of the world-2 state ``two`` (``{"state", "factors"}``)
+    from the one-process ``one`` under the CPU tests' bounds; raises beyond
+    them. Adam-trained weights: within 2.05 lr, fewer than 1% of elements
+    beyond 0.5 lr (``tests/test_torch_distributed.py``). Adafactor heads in
+    fp32: within 0.05 lr (``tests/test_torch_tp.py``); on bf16 heads,
+    within 10 lr with at most max(2, 0.5%) of a tensor's elements outside
+    1e-2 + 1e-2 |ref| (``jax_suite_distances``' bf16 bounds). The fused
+    Adafactor's ``v_row`` / ``v_col`` after the step (the mean squares of
+    the global gradient) within rtol 1e-3, or 1e-2 (about one rounding
+    step) in bf16. Under ``amp`` (bf16 activations) Adam's one-step bound
+    alone, 2.05 lr, and the running stats within bf16's 2e-2; the share
+    beyond 0.5 lr is reported, not gated."""
+    worst = {"max_d_over_lr": 0.0, "loose_fraction": 0.0, "stats_max_abs": 0.0}
+    total = loose = 0
+    for k, v in one["state"].items():
+        d = (two["state"][k].float() - v.float()).abs()
+        if "running" in k:
+            worst["stats_max_abs"] = max(worst["stats_max_abs"], float(d.max()))
+            rtol, atol = (2e-2, 2e-2) if amp else (1e-3, 1e-5) if finetune else (1e-5, 1e-5)
+            if not bool((d <= atol + rtol * v.float().abs()).all()):
+                raise AssertionError(f"{name}: running stat {k} off by {float(d.max())}")
+            continue
+        if k.endswith("num_batches_tracked"):
+            continue
+        worst["max_d_over_lr"] = max(worst["max_d_over_lr"], float(d.max()) / lr)
+        if inter_opt != "adam" and k.startswith("inter_"):
+            limit = 10 * lr if bf16 else 0.05 * lr
+            if bf16:
+                out = int((d > 1e-2 + 1e-2 * v.float().abs()).sum())
+                frac = out / d.numel()
+                worst["inter_outside_fraction"] = max(worst.get("inter_outside_fraction", 0.0),
+                                                      frac)
+                if out > max(2, int(5e-3 * d.numel())):
+                    raise AssertionError(f"{name}: {out} of {d.numel()} elements of {k} outside "
+                                         "1e-2 + 1e-2 |ref|")
+        elif finetune:
+            limit = 2 * lr + 1e-6
+            far = float((d > 1e-5 + 1e-3 * v.float().abs()).float().mean())
+            worst["loose_fraction"] = max(worst["loose_fraction"], far)
+            if far > 0.05:
+                raise AssertionError(f"{name}: {far:.3f} of {k} outside rtol 1e-3")
+        else:
+            limit = 2.05 * lr
+            loose += int((d > 0.5 * lr).sum())
+            total += d.numel()
+        if float(d.max()) > limit:
+            raise AssertionError(f"{name}: {k} off by {float(d.max()) / lr:.3f} lr")
+    if total:
+        worst["loose_fraction"] = loose / total
+        if loose / total >= 0.01 and not amp:
+            raise AssertionError(f"{name}: {loose / total:.4f} of elements beyond 0.5 lr")
+    if one["factors"].keys() != two["factors"].keys():
+        raise AssertionError(f"{name}: factored weights {sorted(two['factors'])} vs one process "
+                             f"{sorted(one['factors'])}")
+    if one["factors"]:
+        rtol = 1e-2 if bf16 else 1e-3
+        rel = 0.0
+        for k, f in one["factors"].items():
+            for key, ref in f.items():
+                r = float(((two["factors"][k][key] - ref).abs() / ref.abs().clamp_min(1e-30))
+                          .max())
+                rel = max(rel, r)
+                if r > rtol:
+                    raise AssertionError(f"{name}: {key} of {k} off by rel {r:.2e} > {rtol}")
+        worst["factor_rel"] = rel
+        worst["factored_weights"] = len(one["factors"])
+    return worst
+
+
+def _dist_references(dev, tiles, masks, out_path: str, names) -> None:
+    """One process at the global batch on the card, for each of ``names``
+    among DIST_CASES (the fused step) and ``hooknet_trailing`` (the HookNet
+    step with the trailing batch's pads): losses, K1 counts, learning
+    rates, states and fused-Adafactor factors."""
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig
+    from msfwsi_tpu_torch.models.hooknet import build_hooknet
+    from msfwsi_tpu_torch.ops.cuda import colorops as K
+    from msfwsi_tpu_torch.train import finetune as FT
+    from msfwsi_tpu_torch.train import ssl as S
+
+    one = {}
+    for name in names:
+        if name == "hooknet_trailing":
+            continue
+        config, aug = _dist_ssl(DIST_CASES[name][0])
+        state = S.create_ssl_state(config, device=dev)
+        step = S.make_fused_step(config, aug, device=dev)
+        K.LAUNCHES = 0
+        loss = float(step(state, torch.from_numpy(tiles).to(dev),
+                          torch.Generator(device=dev).manual_seed(7))["loss"])
+        one[name] = {"loss": loss, "launches": K.LAUNCHES, "lr": config.init_lr,
+                     "inter_opt": config.inter_opt,
+                     "state": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                     "factors": _factor_stats(state)}
+        del state, step
+    if "hooknet_trailing" not in names:
+        torch.save(one, out_path)
+        return
+    config = FT.FinetuneConfig(**DIST_FT)
+    model = build_hooknet(torch.Generator().manual_seed(0), arch=config.arch,
+                          classes=config.num_classes)
+    state = FT.create_finetune_state(config, device=dev, model=model)
+    step = FT.make_fused_finetune_step(config, AugConfig(), device=dev)
+    m = step(state, torch.from_numpy(tiles).to(dev), torch.from_numpy(masks).to(dev),
+             torch.Generator(device=dev).manual_seed(7),
+             valid=torch.tensor(DIST_VALID, dtype=torch.bool))
+    one["hooknet_trailing"] = {"loss": float(m["loss"]), "launches": 0, "lr": config.init_lr,
+                               "inter_opt": "adam",
+                               "state": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                               "factors": {}}
+    torch.save(one, out_path)
+
+
+def _dist_inputs():
+    """The global batch of part (b): 8 uint8 tiles of 512 px and 4-class
+    masks, the last of each rank's rows wrap-padded as DIST_VALID marks."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    src = DIST_SSL["scale"] * 256
+    tiles = rng.integers(0, 256, (8, src, src, 3), dtype=np.uint8)
+    masks = rng.integers(0, 4, (8, src, src), dtype=np.uint8)
+    for a, b in ((3, 0), (6, 4), (7, 5)):
+        tiles[a], masks[a] = tiles[b], masks[b]
+    return tiles, masks
+
+
+def _dist_part_gloo(tmp: str, timeout: float) -> dict:
+    """Two ranks on the one card over gloo, spawned from here and killed at
+    ``timeout``; each rank first runs half of the one-process references.
+    Each case's world-2 result against its reference under the CPU tests'
+    bounds."""
+    import torch
+    import torch.multiprocessing as mp
+
+    tiles, masks = _dist_inputs()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dist_worker, args=(os.path.join(tmp, "store"), tiles, masks, tmp),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(1.0, timeout - (time.perf_counter() - t0))):
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"distributed part gloo exceeded {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    world_s = time.perf_counter() - t0
+    one = {}
+    ranks = []
+    for r in range(2):
+        one.update(torch.load(os.path.join(tmp, f"one_rank{r}.pt"), weights_only=True))
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = {"takes": ranks[0]["takes"], "world_seconds": world_s,
+           "rank_seconds": [r["seconds"] for r in ranks], "cases": {}}
+    for name in [*DIST_CASES, "hooknet_trailing"]:
+        ref = one[name]
+        got = [r["cases"][name] for r in ranks]
+        if got[0]["loss"] != got[1]["loss"]:
+            raise AssertionError(f"{name}: the ranks' losses differ: {got}")
+        bf16 = "bf16" in name
+        amp = name == "ssl_amp"
+        rel = abs(got[0]["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-12)
+        tol = 2e-2 * (1 + abs(ref["loss"])) if amp else (
+            (5e-2 if bf16 else 1e-4) * abs(ref["loss"]) + 1e-5)
+        if abs(got[0]["loss"] - ref["loss"]) > tol:
+            raise AssertionError(f"{name}: loss {got[0]['loss']} vs one process {ref['loss']}")
+        two = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=True)
+        dist_ = _dist_compare(name, ref, two, ref["lr"], bf16=bf16,
+                              finetune=name == "hooknet_trailing", amp=amp,
+                              inter_opt=ref["inter_opt"])
+        out["cases"][name] = {"loss": got[0]["loss"], "loss_one": ref["loss"], "loss_rel": rel,
+                              "k1_per_rank": [g["launches"] for g in got],
+                              "k1_one": ref["launches"], **dist_}
+    return out
+
+
+def phase_distributed(dev, root, tmp, slice_views_per_s, smi_line) -> dict:
+    """(a) NCCL, one rank: the recipe's flags form a group of one on the
+    card; K1 4 launches a step; the loss of the no-group run within bf16's
+    2e-2; tile views/s beside phase slice's. (b) Two ranks on the one card
+    over gloo (NCCL takes one rank a device) against one process at the
+    global batch: the collectives gloo takes on CUDA tensors, then the SSL
+    step at accum 1 and 2, the fused Adafactor on bf16 heads,
+    ``--model-parallel 2`` with Adam and with the fused Adafactor, and a
+    HookNet step with a wrap-padded trailing batch, within the CPU tests'
+    bounds (fp32 views: no K1), and the SSL step under amp on bf16 views,
+    K1 4 launches a rank. Each part in a child process with its own time
+    limit."""
+    t0 = time.perf_counter()
+    logs = os.path.join(tmp, "dist_logs")
+    a = _run_child(["--distributed-part", "nccl", json.dumps({"root": root, "logs": logs})],
+                   DIST_PART_TIMEOUT_S["nccl"])
+    rec, plain = a["recipe"], a["no_group"]
+    log("distributed", f"(a) recipe flags: group {rec['group']}, losses {rec['losses']} vs no "
+        f"group {plain['losses']}, K1 {rec['launches']} in {rec['steps']} steps; tile views/s "
+        f"{rec['views_per_s']:.1f} (no group {plain['views_per_s']:.1f}, phase slice "
+        f"{slice_views_per_s:.1f}) on {smi_line}")
+    if rec["group"] != {"backend": "nccl", "world": 1, "rank": 0}:
+        raise AssertionError(f"no NCCL group of one formed: {rec['group']}")
+    if rec["launches"] != 4 * rec["steps"] or plain["launches"] != 4 * plain["steps"]:
+        raise AssertionError(f"K1 launches {rec['launches']}/{plain['launches']}, want 4 a step")
+    for x, y in zip(rec["losses"], plain["losses"]):
+        if not (math.isfinite(x) and abs(x - y) <= 2e-2 * (1 + abs(y))):
+            raise AssertionError(f"recipe-flag loss {x} vs no-group {y}")
+    gdir = os.path.join(tmp, "dist_gloo")
+    os.makedirs(gdir)
+    b = _dist_part_gloo(gdir, DIST_PART_TIMEOUT_S["gloo"])
+    log("distributed", f"(b) gloo on CUDA tensors takes: {b['takes']}; two ranks in "
+        f"{b['world_seconds']:.1f} s (each rank's init, references, cases: "
+        f"{[{k: round(v, 1) for k, v in r.items()} for r in b['rank_seconds']]})")
+    for name, c in b["cases"].items():
+        extra = "".join(f", {k} {c[k]:.3g}" for k in ("inter_outside_fraction", "factor_rel",
+                                                       "factored_weights") if k in c)
+        log("distributed", f"(b) {name}: loss {c['loss']:.7f} vs one process "
+            f"{c['loss_one']:.7f} (rel {c['loss_rel']:.2e}), max |d| {c['max_d_over_lr']:.3f} "
+            f"lr, beyond 0.5 lr {c['loose_fraction']:.4f}"
+            f"{' (not gated)' if name == 'ssl_amp' else ''}, stats "
+            f"{c['stats_max_abs']:.2e}{extra}; K1 per rank {c['k1_per_rank']} (one process "
+            f"{c['k1_one']})")
+        want = 4 if name == "ssl_amp" else 0  # fp32 views take no K1
+        if c["k1_per_rank"] != [want, want] or c["k1_one"] != want:
+            raise AssertionError(f"{name}: K1 {c['k1_per_rank']} a rank, {c['k1_one']} in one "
+                                 f"process; want {want}")
+    seconds = time.perf_counter() - t0
+    log("distributed", f"passed in {seconds:.1f} s on {smi_line}")
+    per_rank = sum(c["k1_per_rank"][0] for c in b["cases"].values())
+    return {"nccl": a, "gloo": b, "seconds": seconds,
+            "launches": {"recipe": {"K1": rec["launches"], "K2": 0, "probe": 0},
+                         "rank0": {"K1": per_rank, "K2": 0, "probe": 0},
+                         "rank1": {"K1": sum(c["k1_per_rank"][1] for c in b["cases"].values()),
+                                   "K2": 0, "probe": 0}}}
+
+
+def distributed_part(part: str, args: dict) -> int:
+    """Entry of part (a)'s child process."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    faulthandler.dump_traceback_later(DIST_PART_TIMEOUT_S[part] - 10, exit=True)
+    out = _dist_part_nccl(**args)
+    print("DIST_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
 def kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows, cli_out,
                  ft_out, ft_cli_out, other_paths):
     """One entry per kernel. K1's times are for its work in one main-path
@@ -2041,6 +2479,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if len(sys.argv) == 4 and sys.argv[1] == "--distributed-part":
+        return distributed_part(sys.argv[2], json.loads(sys.argv[3]))
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import msfwsi_tpu_torch  # noqa: F401  (fails here, before any output, outside a checkout)
 
@@ -2068,6 +2508,7 @@ def main() -> int:
         serve_out = phase_serving(dev, root, tmp, ft_cli_out, smi_line)
         enc_out = phase_encoders(dev, smi_line)
         mem_out = phase_memory(dev, root, tmp, smi_line)
+        dist_out = phase_distributed(dev, root, tmp, slice_out["views_per_s"], smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     other_paths = {"eval_cli": eval_out["launches"],
@@ -2078,7 +2519,10 @@ def main() -> int:
                    "encoders_ft": enc_out["ft_launches"],
                    "memory_ssl": mem_out["ssl"]["launches"],
                    "memory_remat": mem_out["remat"]["launches"],
-                   "memory_cli": mem_out["cli_launches"], "memory_ft": mem_out["ft_launches"]}
+                   "memory_cli": mem_out["cli_launches"], "memory_ft": mem_out["ft_launches"],
+                   "distributed_recipe_nccl": dist_out["launches"]["recipe"],
+                   "distributed_gloo_rank0": dist_out["launches"]["rank0"],
+                   "distributed_gloo_rank1": dist_out["launches"]["rank1"]}
     line = kernels_line(rows, slice_out, blur_rows, blur_path, probe_launches, probe_rows,
                         cli_out, ft_out, ft_cli_out, other_paths)
     # Repeated here so that the end of the output, which may be all a caller

@@ -8,9 +8,14 @@ per-class F1 / IoU / accuracy.
 
 Every flag of the JAX CLI's parser is here with its default, so the
 evaluation commands of ``scripts/paip.sh`` run verbatim with ``python -m
-msfwsi_tpu_torch.evaluate``; the DDP flags and the reference's unused
+msfwsi_tpu_torch.evaluate``; the reference's unused
 ``--frac``/``--lam``/``--weight-name`` are logged as inert. ``--device``
 (``cuda`` by default) is the port's own.
+
+Over several ranks (the DDP flags, as ``ssl_train``, or ``torchrun``) each
+rank takes its slice of every ``--val-chunk`` chunk and the slide's counts
+are summed over the ranks, when the chunk divides by the world; else every
+rank evaluates whole (``tools/evaluate.py:104-115``).
 
 ``--weights`` is a ``.pth.tar`` (``best_ft_model.pth.tar`` of the port's
 or the reference's fine-tuning). An Orbax directory of the JAX package
@@ -23,15 +28,14 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 from . import _cli
+from ._cli import warn_noop_flags
 from .data import datasets as D
 from .data.loader import load_slide_arrays, synthetic_tile_library
 from .data.pipeline import AugConfig, make_seg_val_views_host
 from .models.hooknet import HookNet
 from .ssl_finetune import CLASS_NAMES, FT_NOOP_FLAGS, check_norm_stats
-from .ssl_train import warn_noop_flags
 from .train import checkpoint as C
 from .train import evaluate as EV
 
@@ -70,13 +74,19 @@ def main(argv=None) -> dict:
     """Run the CLI on ``argv``. Returns the log dir, the summary (micro
     scores' means over slides, per-class means) and each slide's micro
     scores and (4, C) tp/fp/fn/tn counts."""
-    parser = build_parser()
-    args, dev, defaults = _cli.start(parser, argv)
-    return _cli.run(args, argv, __spec__.name,
-                    lambda logger: main_worker(args, dev, defaults, logger))
+    return _cli.launch(build_parser(), argv, __spec__.name, main_worker)
 
 
-def main_worker(args, dev, defaults, logger) -> dict:
+def chunk_mesh(mesh, chunk: int, logger, what: str):
+    """``mesh`` when its data ranks divide ``chunk`` (the chunks are then
+    split over them), else None: every rank runs whole chunks."""
+    if mesh is None or mesh.data == 1 or chunk % mesh.data:
+        return None
+    logger.info(f"=> sharding {what} chunks over {mesh.data} ranks")
+    return mesh
+
+
+def main_worker(args, dev, defaults, logger, mesh=None) -> dict:
     warn_noop_flags(logger, args, defaults, EVAL_NOOP_FLAGS)
     if args.packed_tail:
         logger.info("=> flag --packed-tail accepted for parity but inert: the port computes the "
@@ -84,8 +94,6 @@ def main_worker(args, dev, defaults, logger) -> dict:
     if args.data_name not in CLASS_NAMES:
         raise ValueError(f"unsupported --data-name {args.data_name!r} (bcss or paip)")
     class_names = CLASS_NAMES[args.data_name]
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.info(f"=> device {dev} ({name})")
     logger.info(f"=> creating model '{args.arch}'")
     logger.info(f"=> loading pretrained weights {args.weights}")
     model = load_hooknet(args.weights, args.arch, len(class_names) + 1, dev, args, logger)
@@ -125,7 +133,8 @@ def main_worker(args, dev, defaults, logger) -> dict:
             logger.info(f"Val slide [{i}] f1={micro['f1']:.4f}")
 
     scores = EV.validate_slides(chunk_stats, slides(), args.val_views, class_names,
-                                chunk=args.val_chunk, device=dev, on_slide=log_slide)
+                                chunk=args.val_chunk, device=dev, on_slide=log_slide,
+                                mesh=chunk_mesh(mesh, args.val_chunk, logger, "validation"))
     s = scores.summary()
     logger.info("=> Best scores:")
     logger.info("=======\n"

@@ -39,6 +39,7 @@ from .data.pipeline import AugConfig
 from .data.slides import iter_csv_slides, iter_dir_slides, iter_synthetic
 from .models.backbone import MSFWSI, build_msfwsi
 from .models.resnet import get_encoder
+from .evaluate import chunk_mesh
 from .ssl_finetune import check_norm_stats
 from .train import checkpoint as C
 from .train import features as F
@@ -74,16 +75,12 @@ def encoders_model(state_dict: dict, arch: str, scale: int, branches, dev, weigh
 def main(argv=None) -> dict:
     """Run the CLI on ``argv``. Returns the log dir, the output dir, the
     feature spec, the tile count and the seconds of the extraction loop."""
-    parser = build_parser()
-    args, dev, _ = _cli.start(parser, argv)
-    return _cli.run(args, argv, __spec__.name, lambda logger: _extract(args, dev, logger))
+    return _cli.launch(build_parser(), argv, __spec__.name, _extract)
 
 
-def _extract(args, dev, logger) -> dict:
+def _extract(args, dev, defaults, logger, mesh) -> dict:
     branches = F.BRANCHES if args.branch == "both" else (args.branch,)
     scales = tuple(int(s) for s in args.scales.split(","))
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.info(f"=> device {dev} ({name})")
     logger.info(f"=> creating model '{args.arch}' (scale {args.scale})")
     if args.weights == "random":
         logger.info(f"=> random-init encoders (untrained probe control, seed {args.seed})")
@@ -116,15 +113,10 @@ def _extract(args, dev, logger) -> dict:
         raise ValueError("one of --train-data / --tiles-dir / --synthetic is required")
 
     out_dir = args.out or osp.join(args.log_dir, "features")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(osp.join(out_dir, "features.json"), "w") as f:
-        json.dump({
-            "arch": args.arch, "scale": args.scale, "img_size": args.img_sz,
-            "weights": str(args.weights), "out_dtype": args.out_dtype,
-            "keys": [{"key": f"{b}_s{s}", "branch": b, "stage": s, "channels": c,
-                      "shape": ["T", c] if b == "context" else ["T", args.scale**2, c]}
-                     for b, s, c in spec],
-        }, f, indent=2)
+    split = chunk_mesh(mesh, args.chunk, logger, "extraction")
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        _write_spec(out_dir, args, spec)
 
     n_tiles = 0
     t0 = time.perf_counter()
@@ -133,17 +125,30 @@ def _extract(args, dev, logger) -> dict:
             logger.warning(f"=> {slide}: tile size {imgs.shape[1]}x{imgs.shape[2]} not "
                            f"divisible by --scale {args.scale}; skipping")
             continue
-        feats = predict_slide(feats_fn, (imgs,), chunk=args.chunk, device=dev)
+        feats = predict_slide(feats_fn, (imgs,), chunk=args.chunk, device=dev, mesh=split)
+        n_tiles += len(stems)
+        if not mesh.is_main:  # rank 0 writes every slide's features
+            continue
         payload = {"stems": np.asarray(stems)}
         for (b, s, _), arr in zip(spec, feats):
             payload[f"{b}_s{s}"] = arr
         np.savez(osp.join(out_dir, f"{slide}.npz"), **payload)
-        n_tiles += len(stems)
         logger.info(f"=> {slide}: {len(stems)} tiles x {len(spec)} feature keys")
     seconds = time.perf_counter() - t0
     logger.info(f"=> done: {n_tiles} tiles -> {out_dir} in {seconds:.2f} s")
     return {"log_dir": args.log_dir, "out_dir": out_dir, "spec": spec, "tiles": n_tiles,
             "seconds": seconds}
+
+
+def _write_spec(out_dir: str, args, spec) -> None:
+    with open(osp.join(out_dir, "features.json"), "w") as f:
+        json.dump({
+            "arch": args.arch, "scale": args.scale, "img_size": args.img_sz,
+            "weights": str(args.weights), "out_dtype": args.out_dtype,
+            "keys": [{"key": f"{b}_s{s}", "branch": b, "stage": s, "channels": c,
+                      "shape": ["T", c] if b == "context" else ["T", args.scale**2, c]}
+                     for b, s, c in spec],
+        }, f, indent=2)
 
 
 def build_parser():

@@ -171,12 +171,10 @@ def bootstrap_ci(pred, y, n_boot: int = 10000, seed: int = 0) -> list[float]:
 
 def main(argv=None) -> dict:
     """Run the CLI on ``argv``. Returns the train and val results."""
-    parser = build_parser()
-    args, dev, _ = _cli.start(parser, argv)
-    return _cli.run(args, argv, __spec__.name, lambda logger: _probe(args, dev, logger))
+    return _cli.launch(build_parser(), argv, __spec__.name, _probe)
 
 
-def _probe(args, dev, logger) -> dict:
+def _probe(args, dev, defaults, logger, mesh) -> dict:
     labels, num_classes = load_labels(args.train_data, args.data_name)
     X_tr, y_tr = load_features(args.features, args.key, labels, args.agg, logger)
     X_va, y_va = load_features(args.features_val, args.key, labels, args.agg, logger)
@@ -210,6 +208,8 @@ def _probe(args, dev, logger) -> dict:
         ci = "  ci95 [%.3f, %.3f]" % tuple(r["acc_ci95"]) if "acc_ci95" in r else ""
         logger.info(f"=> {split}: acc {r['acc']:.4f}{ci}  micro-F1 {r['micro_f1']:.4f}  "
                     f"per-class F1 {['%.3f' % v for v in r['f1_per_class']]}")
+    if not mesh.is_main:  # each rank fits the same probe; rank 0 writes it
+        return results
     out = args.out or osp.join(args.log_dir, "probe")
     if params is not None:
         np.savez(out + ".npz", W=params[0], b=params[1], mu=mu, sigma=sigma, key=args.key,

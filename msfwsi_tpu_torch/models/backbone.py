@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.geometry import unshuffle_features
+from ..parallel.tp import head_forward, shard_msfwsi
 from .resnet import BatchNorm, get_encoder, torch_style_init
 
 __all__ = ["HeadLinear", "Projector", "Predictor", "MSFWSI", "build_msfwsi"]
@@ -46,20 +47,24 @@ class HeadLinear(nn.Linear):
     inputs is cast up, as flax ``nn.Dense`` with ``param_dtype`` bf16 and
     ``dtype`` fp32 does). With a ``stash`` (:meth:`MSFWSI.tap_factored`) it
     runs through :class:`_FactorTap`, and its weight never gets a
-    gradient."""
+    gradient. ``defer_bias``: the bias is left for the caller to add (a
+    row-parallel layer adds it after the sum of the ranks' partial
+    outputs, ``parallel/tp.py``)."""
 
     stash = None
+    defer_bias = False
 
     def forward(self, x):
         dev = x.device.type
         autocast = torch.is_autocast_enabled(dev)
+        own_bias = None if self.defer_bias else self.bias
         if self.stash is None:
             if autocast or self.weight.dtype == x.dtype:
-                return F.linear(x, self.weight, self.bias)
-            bias = None if self.bias is None else self.bias.to(x.dtype)
+                return F.linear(x, self.weight, own_bias)
+            bias = None if own_bias is None else own_bias.to(x.dtype)
             return F.linear(x, self.weight.to(x.dtype), bias)
         dt = torch.get_autocast_dtype(dev) if autocast else x.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = None if own_bias is None else own_bias.to(dt)
         with torch.autocast(dev, enabled=False):
             return _FactorTap.apply(x.to(dt), self.weight, bias, self.stash)
 
@@ -70,7 +75,20 @@ def _head_bn(dim: int, affine: bool = True) -> BatchNorm:
     return BatchNorm(dim, affine=affine, normalize_fp32=True)
 
 
-class Projector(nn.Sequential):
+class _Head(nn.Sequential):
+    """A head's layers in sequence; with ``tp_group`` set (a fuser head
+    split over the model group, ``parallel/tp.py``) through
+    :func:`~..parallel.tp.head_forward`."""
+
+    tp_group = None
+
+    def forward(self, x):
+        if self.tp_group is None:
+            return super().forward(x)
+        return head_forward(self, x)
+
+
+class Projector(_Head):
     """[Linear(no bias)-BN-ReLU] x2 + Linear(no bias) + BN(affine=False)."""
 
     def __init__(self, in_dim: int, out_dim: int):
@@ -81,7 +99,7 @@ class Projector(nn.Sequential):
         )
 
 
-class Predictor(nn.Sequential):
+class Predictor(_Head):
     """Linear(no bias)-BN-ReLU + Linear(bias) back to the input width."""
 
     def __init__(self, in_dim: int, hidden_dim: int):
@@ -138,7 +156,11 @@ class MSFWSI(nn.Module):
         from ..train.factored import is_factored_kernel
 
         for name, m in self.named_modules():
-            if isinstance(m, HeadLinear) and is_factored_kernel(f"{name}.weight", m.weight):
+            if not isinstance(m, HeadLinear):
+                continue
+            split = getattr(m, "tp_split", {}).get("weight")  # a slice: the rule reads the whole
+            full = None if split is None else split.full_shape(m.weight.shape)
+            if is_factored_kernel(f"{name}.weight", m.weight, full):
                 m.stash = stash
 
     @staticmethod
@@ -205,11 +227,17 @@ class MSFWSI(nn.Module):
         }
 
 
-def build_msfwsi(generator: torch.Generator, device="cpu", **kwargs) -> MSFWSI:
+def build_msfwsi(generator: torch.Generator, device="cpu", mesh=None, **kwargs) -> MSFWSI:
     """An :class:`MSFWSI` initialized from ``generator`` (a CPU generator:
     the weights are drawn on the CPU, so a seed gives the same model on
-    every device) and moved to ``device``. No other random draw is made."""
+    every device) and moved to ``device``. No other random draw is made.
+
+    With a ``mesh`` whose model axis is over 1 the fuser heads are born
+    split (``parallel/tp.py::shard_msfwsi``): this rank allocates and fills
+    only its slices, with the values of the full model's draw."""
     with torch.device("meta"):
         model = MSFWSI(**kwargs)
+    if mesh is not None and mesh.model > 1:
+        shard_msfwsi(model, mesh)
     model = torch_style_init(model.to_empty(device="cpu"), generator)
     return model.to(device)

@@ -16,8 +16,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["BatchNorm", "BasicBlock", "Bottleneck", "ResNet", "ARCH_SPECS", "feature_dims",
-           "get_encoder", "torch_style_init"]
+from ..parallel.mesh import all_reduce_mean
+
+__all__ = ["BatchNorm", "sync_batchnorm", "BasicBlock", "Bottleneck", "ResNet", "ARCH_SPECS",
+           "feature_dims", "get_encoder", "torch_style_init"]
 
 
 class BatchNorm(nn.Module):
@@ -31,11 +33,18 @@ class BatchNorm(nn.Module):
     does. (torch's own ``F.batch_norm`` would store the unbiased variance.)
     With ``update_stats`` False a train-mode forward normalizes by the batch
     statistics and leaves the running ones alone: the recompute of a
-    checkpointed block (:func:`checkpointed`) sets it."""
+    checkpointed block (:func:`checkpointed`) sets it.
+
+    With a data-parallel ``group`` (:func:`sync_batchnorm`) the fp32 pair
+    ``(mean, mean of squares)`` is averaged over the group before the
+    variance, by a differentiable all-reduce, as the JAX package's
+    ``pmean`` (``BatchNormNamedStats``): the statistics, their gradient and
+    the running stats are those of the global batch on every rank."""
 
     momentum = 0.9  # flax convention: the share kept of the running stat
     eps = 1e-5
     update_stats = True
+    group = None
 
     def __init__(self, num_features: int, affine: bool = True, zero_init: bool = False,
                  normalize_fp32: bool = False):
@@ -66,7 +75,12 @@ class BatchNorm(nn.Module):
             dims = [0, *range(2, x.dim())]
             xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp64 stays fp64
             mean = xf.mean(dim=dims)
-            var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            if self.group is None:
+                var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            else:
+                mean, mean2 = all_reduce_mean(torch.stack([mean, xf.square().mean(dim=dims)]),
+                                              self.group)
+                var = (mean2 - mean.square()).clamp_min(0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -84,6 +98,16 @@ class BatchNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(ct).view(shape)
         return y.to(dt)
+
+
+def sync_batchnorm(module: nn.Module, group) -> nn.Module:
+    """Reduce the batch statistics of every :class:`BatchNorm` of ``module``
+    over the data-parallel ``group`` (None: this rank's batch alone, the
+    single-process module)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 @contextlib.contextmanager
@@ -280,10 +304,18 @@ def torch_style_init(module: nn.Module, generator: torch.Generator) -> nn.Module
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
             elif isinstance(m, nn.Linear):
                 # drawn in fp32 whatever the storage dtype, so a seed gives
-                # a bf16 head the fp32 head's values, rounded
+                # a bf16 head the fp32 head's values, rounded; a tensor
+                # parallel slice takes its part of the full draw
                 bound = 1.0 / math.sqrt(m.in_features)
-                for p in (m.weight, m.bias):
-                    if p is not None:
+                split = getattr(m, "tp_split", {})
+                for name in ("weight", "bias"):
+                    p = getattr(m, name)
+                    if p is None:
+                        continue
+                    if name in split:
+                        split[name].fill_(p, lambda n: torch.empty(n).uniform_(
+                            -bound, bound, generator=generator))
+                    else:
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
             elif isinstance(m, BatchNorm):
                 m.reset_parameters()

@@ -10,6 +10,8 @@ from typing import Sequence
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum
+
 __all__ = ["cosine_similarity", "simsiam_loss", "msfwsi_loss", "dice_loss"]
 
 
@@ -45,7 +47,7 @@ def msfwsi_loss(outputs: dict, fuser_weights: Sequence[float]):
 
 
 def dice_loss(logits, target, classes: Sequence[int] | None = None, smooth: float = 0.0,
-              eps: float = 1e-7, sample_mask=None):
+              eps: float = 1e-7, sample_mask=None, group=None):
     """Multiclass soft Dice loss on NHWC logits (smp-compatible).
 
     ``logits`` (N, H, W, C), ``target`` (N, H, W) integer classes in [0, C).
@@ -55,7 +57,10 @@ def dice_loss(logits, target, classes: Sequence[int] | None = None, smooth: floa
     of ``loss_c`` over ``classes`` (the reference passes ``[1..C]``, leaving
     out background 0), or over all classes. The softmax runs in fp32.
     ``sample_mask`` (N,): samples at 0 contribute to no sum, so a padded
-    batch gives the loss of its real samples exactly."""
+    batch gives the loss of its real samples exactly. ``group``: the batch
+    is split over this data-parallel group; the sums are taken over the
+    global batch by a differentiable all-reduce, so every rank gets the
+    global loss."""
     num_classes = logits.shape[-1]
     probs = torch.softmax(logits.float(), dim=-1)
     onehot = (target[..., None] == torch.arange(num_classes, device=target.device)).float()
@@ -66,8 +71,12 @@ def dice_loss(logits, target, classes: Sequence[int] | None = None, smooth: floa
     dims = (0, 1, 2)
     intersection = (probs * onehot).sum(dim=dims)
     cardinality = (probs + onehot).sum(dim=dims)
+    count = onehot.sum(dim=dims)
+    if group is not None:
+        intersection, cardinality, count = all_reduce_sum(
+            torch.stack([intersection, cardinality, count]), group)
     score = (2.0 * intersection + smooth) / (cardinality + smooth).clamp_min(eps)
-    present = onehot.sum(dim=dims) > 0
+    present = count > 0
     loss = (1.0 - score) * present.float()
     if classes is not None:
         loss = loss[torch.as_tensor(list(classes), device=loss.device)]

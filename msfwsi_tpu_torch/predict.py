@@ -26,14 +26,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from . import _cli
 from .data.loader import NUM_THREADS
 from .data.pipeline import make_seg_val_views_host
 from .data.png import png_size, write_png
 from .data.slides import iter_csv_slides, iter_dir_slides, iter_synthetic
-from .evaluate import eval_aug_config, load_hooknet
+from .evaluate import chunk_mesh, eval_aug_config, load_hooknet
 from .ops.geometry import TileGrid
 from .ssl_finetune import CLASS_NAMES
 from .train import predict as PR
@@ -59,9 +58,7 @@ def main(argv=None) -> dict:
     """Run the CLI on ``argv``. Returns the log dir, the output dir, the
     tile count and the seconds of the prediction loop (decode, views,
     forward and PNG writes)."""
-    parser = build_parser()
-    args, dev, _ = _cli.start(parser, argv)
-    return _cli.run(args, argv, __spec__.name, lambda logger: _predict(args, dev, logger))
+    return _cli.launch(build_parser(), argv, __spec__.name, _predict)
 
 
 def _slides(args, num_classes: int, logger):
@@ -74,12 +71,10 @@ def _slides(args, num_classes: int, logger):
     return iter_csv_slides(args.train_data, args.data_name, args.fold, logger)
 
 
-def _predict(args, dev, logger) -> dict:
+def _predict(args, dev, defaults, logger, mesh) -> dict:
     class_names = CLASS_NAMES[args.data_name]
     if args.stitch and not args.raw_data:
         raise ValueError("--stitch needs --raw-data (the prep input dir) for slide geometry")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.info(f"=> device {dev} ({name})")
     logger.info(f"=> creating model '{args.arch}'")
     logger.info(f"=> loading fine-tuned weights {args.weights}")
     model = load_hooknet(args.weights, args.arch, len(class_names) + 1, dev, args, logger)
@@ -88,7 +83,9 @@ def _predict(args, dev, logger) -> dict:
     preds_fn = PR.make_chunk_preds_for_views(model, args.val_views, aug_cfg, heads, args.amp)
     slides = _slides(args, len(class_names), logger)
     out_dir = args.out or osp.join(args.log_dir, "predictions")
-    os.makedirs(out_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+    split = chunk_mesh(mesh, args.val_chunk, logger, "prediction")
 
     def prepared():
         for slide, stems, imgs in slides:
@@ -104,14 +101,17 @@ def _predict(args, dev, logger) -> dict:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(NUM_THREADS) as pool:
         for slide, stems, tile_px, arrays in prefetch_iter(prepared()):
-            preds = PR.predict_slide(preds_fn, arrays, chunk=args.val_chunk, device=dev)
+            preds = PR.predict_slide(preds_fn, arrays, chunk=args.val_chunk, device=dev,
+                                     mesh=split)
+            n_tiles += len(stems)
+            if not mesh.is_main:  # rank 0 writes every slide's outputs
+                continue
             writes = []
             for head, head_preds in zip(heads, preds):
                 head_dir = osp.join(out_dir, slide, head)
                 os.makedirs(head_dir, exist_ok=True)
                 writes += [pool.submit(save_pred_png, osp.join(head_dir, stem + ".png"), p)
                            for stem, p in zip(stems, head_preds)]
-            n_tiles += len(stems)
             if args.stitch:
                 raw = osp.join(args.raw_data, "images", slide + ".png")
                 if not osp.exists(raw):

@@ -8,12 +8,20 @@ Every flag of the JAX CLI's parser is here with its default, so the
 fine-tuning commands of ``scripts/{bcss,paip,c16}.sh`` run verbatim with
 ``python -m msfwsi_tpu_torch.ssl_finetune`` in place of ``python
 tools/ssl_finetune.py``. Flags kept only for parity with the reference's
-DDP/CUDA runtime are logged as inert; ``--packed-tail`` (a TPU layout of
-the decoder, exact with the same weights) is accepted and the decoder is
-computed unpacked; a value the port cannot honour yet raises, naming the
-``ROADMAP.md`` queue item that ports it. ``--device`` (``cuda`` by default)
-is the port's own: without a card the CLI raises unless given ``--device
-cpu``.
+runtime are logged as inert; ``--packed-tail`` (a TPU layout of the
+decoder, exact with the same weights) is accepted and the decoder is
+computed unpacked. ``--device`` (``cuda`` by default) is the port's own:
+without a card the CLI raises unless given ``--device cpu``.
+
+Distributed runs take the SSL CLI's flags (``ssl_train.py``: the
+reference's ``--multiprocessing-distributed --world-size --rank
+--dist-url --dist-backend``, or ``torchrun``): ``-b`` is the global batch,
+split over the ranks (data parallelism only); the trailing batch is
+wrap-padded on every rank, its pads in the BatchNorm statistics and out of
+the Dice loss and the train metrics; validation chunks are split over the
+ranks when ``--val-chunk`` divides by the world (else every rank validates
+whole). Rank 0 alone writes ``best_ft_model.pth.tar``, ``configs.txt``,
+TensorBoard and wandb.
 
 ``--weights`` takes an SSL checkpoint of the port (or the reference), whose
 two encoders become the HookNet branch encoders. Each epoch trains on the
@@ -29,41 +37,29 @@ import argparse
 import ast
 import contextlib
 import os
-import random
-import sys
 import time
 
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import _cli
+from ._cli import group_info, warn_noop_flags
 from .data import datasets as D
 from .data.loader import TileBatchLoader, load_slide_arrays, synthetic_tile_library
 from .data.pipeline import AugConfig, make_seg_val_views_host
 from .ops import metrics as M
-from .ssl_train import NOOP_FLAGS, _trackers, add_error_capture, warn_noop_flags
+from .parallel.mesh import Mesh, gather_rows
+from .ssl_train import NOOP_FLAGS, _trackers
 from .train import checkpoint as C
 from .train import evaluate as EV
 from .train import finetune as FT
 from .train.ssl import view_seed
-from .utils import (AverageMeter, BestRecorder, ProgressMeter, close_logger, dump_config,
-                    increment_path, setup_logger)
+from .utils import AverageMeter, BestRecorder, ProgressMeter
 
 __all__ = ["build_parser", "main", "check_norm_stats"]
 
-FT_NOOP_FLAGS = {k: NOOP_FLAGS[k] for k in (
-    "world_size", "rank", "dist_url", "dist_backend", "gpu", "multiprocessing_distributed",
-    "workers", "tf32", "bf16")}
+FT_NOOP_FLAGS = {k: NOOP_FLAGS[k] for k in ("gpu", "workers", "tf32", "bf16")}
 CLASS_NAMES = {"bcss": FT.BCSS_CLASSES, "paip": FT.PAIP_CLASSES}
-
-
-def _unsupported(args) -> list[str]:
-    """Flag values the port cannot honour yet, each with its queue item of
-    ``ROADMAP.md``."""
-    if args.world_size > 1:
-        return [f"--world-size {args.world_size}: not ported yet, ROADMAP.md queue 1, "
-                "distributed"]
-    return []
 
 
 def check_norm_stats(args, weights_path: str, logger) -> None:
@@ -105,32 +101,7 @@ def main(argv=None) -> dict:
     metrics fetch, ``fill_seconds``: the wait for the first batch within
     it, ``val_seconds``), the best scores, the last validation summary and
     the final train state."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    problems = _unsupported(args)
-    if args.accum_steps < 1 or args.batch_size % args.accum_steps:
-        problems.append(f"--batch-size {args.batch_size} must be divisible by --accum-steps "
-                        f"{args.accum_steps}")
-    if problems:
-        raise ValueError("; ".join(problems))
-    dev = resolve_device(args.device)
-    args.log_dir = str(increment_path(args.log_dir, sep="_", mkdir=True))
-    if args.seed is not None:
-        random.seed(args.seed)
-        np.random.seed(args.seed)
-    dump_config(args.log_dir, args)
-    defaults = {a.dest: a.default for a in parser._actions}
-    cmdline = " ".join([sys.executable, "-m", __spec__.name,
-                        *(sys.argv[1:] if argv is None else argv)])
-    return add_error_capture(args.log_dir)(main_worker)(args, dev, defaults, cmdline)
-
-
-def main_worker(args, dev, defaults, cmdline: str) -> dict:
-    logger = setup_logger(args.log_dir, name="MSF-WSI")
-    try:
-        return _finetune(args, dev, defaults, cmdline, logger)
-    finally:
-        close_logger(logger)
+    return _cli.launch(build_parser(), argv, __spec__.name, _finetune)
 
 
 def _data(args, class_names, logger):
@@ -175,17 +146,24 @@ def _data(args, class_names, logger):
     return root, train, load_fn, val_slides
 
 
-def _drain(pending, losses, stats) -> None:
+def _drain(pending, losses, stats, mesh: Mesh | None = None) -> None:
     """Fetch the pending steps' metrics in one device-to-host copy (float64
     holds the counts exactly) and update the loss meter and the per-sample
     count lists. A step's batch may be the epoch's short last one, or a
-    wrap-padded one whose ``valid`` mask keeps its pads out."""
+    wrap-padded one whose ``valid`` mask keeps its pads out. Over data
+    ranks every rank takes every rank's rows (one gather): the meters and
+    the train F1 are the global batch's on each."""
     if not pending:
         return
     flat = torch.cat([torch.cat([m["loss"].double().view(1)]
                                 + [m[k].double().reshape(-1)
                                    for k in ("valid", "tp", "fp", "fn", "tn") if k in m])
-                      for m in pending]).cpu().numpy()
+                      for m in pending])
+    if mesh is not None and mesh.data > 1:
+        per_rank = gather_rows(flat[None], mesh.data_group)
+        pending[:] = [dict(m, rank=r) for r in range(mesh.data) for m in pending]
+        flat = per_rank.reshape(-1)
+    flat = flat.cpu().numpy()
     off = 0
     for m in pending:
         shape = tuple(m["tp"].shape)  # (batch, classes) of this step
@@ -200,15 +178,13 @@ def _drain(pending, losses, stats) -> None:
     pending.clear()
 
 
-def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
-    logger.info(cmdline)
+def _finetune(args, dev, defaults, logger, mesh: Mesh) -> dict:
     warn_noop_flags(logger, args, defaults, FT_NOOP_FLAGS)
     if args.packed_tail:
         logger.info("=> flag --packed-tail accepted for parity but inert: the port computes the "
                     "decoder unpacked (the packed tail is a TPU layout, exact with the same "
                     "weights)")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.info(f"=> device {dev} ({name})")
+    multi = mesh.data > 1
     if args.data_name not in CLASS_NAMES:
         raise ValueError(f"unsupported --data-name {args.data_name!r} (bcss or paip)")
     class_names = CLASS_NAMES[args.data_name]
@@ -220,7 +196,7 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
     )
     logger.info(f"=> creating model '{args.arch}' ({config.num_classes} classes incl. bg)")
     logger.info(f"=> scale lr from {args.lr:.4f} to {config.init_lr:.4f}")
-    state = FT.create_finetune_state(config, device=dev)
+    state = FT.create_finetune_state(config, device=dev, mesh=mesh if multi else None)
     if args.weights:
         resolved = C.resolve_checkpoint_arg(args.weights)
         if resolved is None:
@@ -229,7 +205,8 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
         check_norm_stats(args, resolved, logger)
         state = FT.load_ssl_encoders(state, C.load_torch_file(resolved), config)
         logger.info(f"=> loaded pretrained weights {resolved} into encoders")
-    tb_writer, wandb_run = _trackers(args, logger, job_type="fine-tune")
+    tb_writer, wandb_run = (_trackers(args, logger, job_type="fine-tune") if mesh.is_main
+                            else (None, None))
 
     aug_cfg = AugConfig(mean=tuple(args.mean), std=tuple(args.std), seg_size=args.seg_size,
                         compute_dtype="bfloat16" if args.amp else "float32")
@@ -239,16 +216,24 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
     # the JAX CLI, split into short microbatches. Only a trailing batch that
     # --accum-steps does not divide (where the JAX CLI's step raises) is
     # wrap-padded to full size, its pads masked out of the Dice loss and the
-    # train metrics, as the JAX CLI does under a sharded mesh.
-    pad = len(train_recs) % args.batch_size % config.accum_steps != 0
-    loader = TileBatchLoader(root, train_recs, batch_size=args.batch_size, load_fn=load_fn,
-                             seed=config.seed, drop_last=False, pad_last=pad, device=dev)
+    # train metrics, as the JAX CLI does under a sharded mesh. Over data
+    # ranks every rank's trailing batch is wrap-padded (tools/ssl_finetune.py
+    # :200-212, pad_last=multi), each rank loading its strided shard.
+    pad = multi or len(train_recs) % args.batch_size % config.accum_steps != 0
+    loader = TileBatchLoader(root, train_recs, batch_size=args.batch_size // mesh.data,
+                             load_fn=load_fn, seed=config.seed, drop_last=False, pad_last=pad,
+                             rank=mesh.data_rank, world_size=mesh.data, device=dev)
     logger.info(f"=> train tiles: {len(train_recs)}, steps/epoch: {len(loader)}")
     if len(loader) == 0:
         raise ValueError(f"no training tiles in {root}")
 
-    step_fn = FT.make_fused_finetune_step(config, aug_cfg, device=dev)
+    step_fn = FT.make_fused_finetune_step(config, aug_cfg, device=dev, mesh=state.mesh)
     gen = torch.Generator(device=dev)
+    # Validation chunks are split over the ranks only when the chunk divides
+    # (tools/ssl_finetune.py:238); else every rank validates whole.
+    val_mesh = mesh if multi and args.val_chunk % mesh.data == 0 else None
+    if val_mesh is not None:
+        logger.info(f"=> sharding validation chunks over {mesh.data} ranks")
     chunk_stats = EV.make_chunk_stats_for_views(state.model, len(class_names), args.val_views,
                                                 cfg=aug_cfg, amp=args.amp)
     # Evaluation views are deterministic: in host mode the uint8 views are
@@ -269,7 +254,7 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
     def run_validation():
         slides = host_view_slides() if args.val_views == "host" else val_slides()
         return EV.validate_slides(chunk_stats, slides, args.val_views, class_names,
-                                  chunk=args.val_chunk, device=dev).summary()
+                                  chunk=args.val_chunk, device=dev, mesh=val_mesh).summary()
 
     recorders = {k: BestRecorder("max") for k in ("f1", "iou", "acc")}
     raw_recorders = {m: {c: BestRecorder("max") for c in class_names}
@@ -296,11 +281,11 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
                 batch_time.update(time.time() - end)
                 end = time.time()
                 if it % args.print_freq == 0:
-                    _drain(pending, losses, stats)
+                    _drain(pending, losses, stats, mesh)
                     logger.info(progress.display(it))
                 if args.steps_per_epoch and steps >= args.steps_per_epoch:
                     break
-        _drain(pending, losses, stats)
+        _drain(pending, losses, stats, mesh)
         seconds = time.time() - start
         train_f1 = float(M.f1_score(*(np.concatenate(s) for s in stats),
                                     reduction="micro-imagewise"))
@@ -322,7 +307,7 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
         if wandb_run is not None:
             wandb_run.log({"train_f1_micro": train_f1, "val_f1_micro": summary["f1_micro"]})
             wandb_run.summary["best_val_f1_micro"] = best_f1
-        if is_best:
+        if is_best and mesh.is_main:
             C.save_best_ft_model(args.log_dir, state.model, epoch, args.arch)
             logger.info(f"=> Best model saved at epoch {epoch}!")
         history.append({"epoch": epoch, "loss": losses.avg, "train_f1": train_f1,
@@ -351,7 +336,8 @@ def _finetune(args, dev, defaults, cmdline: str, logger) -> dict:
     if wandb_run is not None:
         wandb_run.finish()
     return {"log_dir": args.log_dir, "epochs": history, "summary": summary,
-            "best": {k: r.best for k, r in recorders.items()}, "state": state}
+            "best": {k: r.best for k, r in recorders.items()}, "state": state,
+            "process_group": group_info(mesh)}
 
 
 def build_parser():

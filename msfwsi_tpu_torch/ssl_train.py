@@ -7,10 +7,26 @@ Every flag of the JAX CLI's parser is here with its default, so the
 pretrain commands of ``scripts/{bcss,paip,c16}.sh`` run verbatim with
 ``python -m msfwsi_tpu_torch.ssl_train`` in place of ``python
 tools/ssl_train.py``. Flags kept only for parity with the reference's
-DDP/CUDA runtime are logged as inert; a value the port cannot honour yet
-raises, naming the ``ROADMAP.md`` queue item that ports it. ``--device``
+runtime (``--gpu``, ``--workers``, ...) are logged as inert. ``--device``
 (``cuda`` by default) is the port's own: without a card the CLI raises
 unless given ``--device cpu``.
+
+Distributed runs take the reference's flags with the reference's meaning
+(``parallel/mesh.py::plan_launch``): ``--multiprocessing-distributed``
+spawns one process per visible card, ``--world-size`` then counting nodes
+and ``--rank`` naming this one (the recipes' ``--multiprocessing-distributed
+--world-size 1 --rank 0`` forms a group of the node's cards); without it,
+``--world-size N --rank R --dist-url URL`` makes this process rank R of N.
+``torchrun --nproc-per-node N -m msfwsi_tpu_torch.ssl_train ...`` works
+too. The backend is ``--dist-backend`` (``nccl``) on the card and gloo with
+``--device cpu``, where a process stands for a card:
+``--multiprocessing-distributed --world-size N --device cpu`` spawns N
+processes on this host. ``-b`` is the global batch, split over the
+``"data"`` ranks; ``--model-parallel M`` splits the fuser heads over groups
+of M adjacent ranks (``parallel/tp.py``), for a head and optimizer state
+that do not fit one card (plain Adam at resnet50 ``-b 32``). Rank 0 alone
+writes checkpoints, ``configs.txt``, TensorBoard and wandb; each rank logs
+to ``log.txt`` (rank 0) or ``log.txt.rank{N}``.
 
 Tiles are read from disk (BCSS, PAIP, Camelyon16 manifests; PNG decoded by
 the port's decoder, or raw bytes from ``--packed-cache``) or made in memory
@@ -34,25 +50,23 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-import random
 import re
 import shutil
-import sys
 import time
-import traceback
 
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import _cli
+from ._cli import group_info, warn_noop_flags
 from .data import datasets as D
 from .data.loader import TileBatchLoader, synthetic_tile_library
 from .data.pipeline import AugConfig
+from .parallel.mesh import Mesh
 from .train import checkpoint as C
 from .train.ssl import (SSLConfig, create_ssl_state, load_imagenet_encoders, make_fused_step,
                         view_seed)
-from .utils import (AverageMeter, ProgressMeter, close_logger, dump_config, increment_path,
-                    setup_logger)
+from .utils import AverageMeter, ProgressMeter, increment_path
 from .utils.imagenet import resolve_imagenet_weights, search_dirs
 
 __all__ = ["build_parser", "main"]
@@ -60,12 +74,7 @@ __all__ = ["build_parser", "main"]
 # Flags kept for parity with the reference's DDP/CUDA runtime that change
 # nothing here; each is logged once when set to a non-default value.
 NOOP_FLAGS = {
-    "world_size": "one process on one device (data parallelism: ROADMAP.md queue 1, distributed)",
-    "rank": "one process on one device",
-    "dist_url": "no process group is formed",
-    "dist_backend": "no process group is formed",
-    "gpu": "the device comes from --device",
-    "multiprocessing_distributed": "one process on one device",
+    "gpu": "the device comes from --device (and each worker's card from its local rank)",
     "workers": "the loader decodes with a thread pool of its own",
     "tf32": "under --amp the step computes in bf16; TF32 keeps PyTorch's defaults",
     "bf16": "bf16 is the autocast dtype whenever --amp is set",
@@ -75,67 +84,14 @@ NOOP_FLAGS = {
 }
 
 
-def _unsupported(args) -> list[str]:
-    """Flag values the port cannot honour yet, each with the queue item of
-    ``ROADMAP.md`` that ports it."""
-    dist = "ROADMAP.md queue 1, distributed"
-    checks = (
-        (args.model_parallel > 1, f"--model-parallel {args.model_parallel}", dist),
-        (args.world_size > 1, f"--world-size {args.world_size}", dist),
-    )
-    return [f"{flag}: not ported yet, {item}" for bad, flag, item in checks if bad]
-
-
-def warn_noop_flags(logger, args, parser_defaults, table=NOOP_FLAGS) -> None:
-    for flag, why in table.items():
-        if getattr(args, flag) != parser_defaults.get(flag):
-            logger.info(f"=> flag --{flag.replace('_', '-')} accepted for parity but inert: {why}")
-
-
-def add_error_capture(log_dir):
-    """Crash tracebacks also go to ``<log_dir>/error.txt`` (reference
-    ``ssl_train.py:72-81``)."""
-
-    def capture(fn):
-        def wrapped(*a, **kw):
-            try:
-                return fn(*a, **kw)
-            except Exception as e:  # noqa: BLE001 — recorded, then raised again
-                print(e, "\n")
-                with open(os.path.join(log_dir, "error.txt"), "a") as f:
-                    traceback.print_exc(file=f)
-                    f.write("\n")
-                raise
-
-        return wrapped
-
-    return capture
-
-
 def main(argv=None) -> dict:
     """Run the CLI on ``argv``. Returns the run's log dir, its per-epoch
     records (``loss``, ``steps``, ``seconds``: the epoch's wall time up to
     its loss fetch, ``fill_seconds``: the part of it spent waiting for the
     first batch, which no step overlaps), the best loss and the final
-    train state."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    problems = _unsupported(args)
-    if args.accum_steps < 1 or args.batch_size % args.accum_steps:
-        problems.append(f"--batch-size {args.batch_size} must be divisible by --accum-steps "
-                        f"{args.accum_steps}")
-    if problems:
-        raise ValueError("; ".join(problems))
-    dev = resolve_device(args.device)
-    args.log_dir = str(increment_path(args.log_dir, sep="_", mkdir=True))
-    if args.seed is not None:
-        random.seed(args.seed)
-        np.random.seed(args.seed)
-    dump_config(args.log_dir, args)
-    defaults = {a.dest: a.default for a in parser._actions}
-    cmdline = " ".join([sys.executable, "-m", __spec__.name,
-                        *(sys.argv[1:] if argv is None else argv)])
-    return add_error_capture(args.log_dir)(main_worker)(args, dev, defaults, cmdline)
+    train state; None after a spawn, each worker's records staying in its
+    process."""
+    return _cli.launch(build_parser(), argv, __spec__.name, _train)
 
 
 def _files(args, seed: int, logger):
@@ -155,19 +111,8 @@ def _files(args, seed: int, logger):
     raise ValueError(f"unsupported --data-name {args.data_name!r} (bcss, paip or camelyon16)")
 
 
-def main_worker(args, dev, defaults, cmdline: str) -> dict:
-    logger = setup_logger(args.log_dir, name=args.logger_name)
-    try:
-        return _train(args, dev, defaults, cmdline, logger)
-    finally:
-        close_logger(logger)
-
-
-def _train(args, dev, defaults, cmdline: str, logger) -> dict:
-    logger.info(cmdline)
-    warn_noop_flags(logger, args, defaults)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.info(f"=> device {dev} ({name})")
+def _train(args, dev, defaults, logger, mesh: Mesh) -> dict:
+    warn_noop_flags(logger, args, defaults, NOOP_FLAGS)
     if args.amp:
         logger.info("=> bf16 autocast enabled (no GradScaler needed)")
 
@@ -202,12 +147,19 @@ def _train(args, dev, defaults, cmdline: str, logger) -> dict:
         logger.info(f"=> building/opening packed tile cache ({len(pool)} tiles)")
         load_fn = get_or_build_pack(root, pool, args.packed_cache).load
         logger.info("=> streaming raw tiles from the packed cache (no decode)")
-    loader = TileBatchLoader(root, files, batch_size=args.batch_size, load_fn=load_fn,
-                             seed=config.seed, device=dev)
+    # The global batch divided over the data ranks, each loading its strided
+    # shard of the files (the JAX CLI's per-host split, tools/ssl_train.py:168).
+    loader = TileBatchLoader(root, files, batch_size=args.batch_size // mesh.data,
+                             load_fn=load_fn, seed=config.seed, rank=mesh.data_rank,
+                             world_size=mesh.data, device=dev)
     logger.info(f"=> Size of data: {len(files)}, steps per epoch: {len(loader)}")
 
     # ---- state ----------------------------------------------------------
-    state = create_ssl_state(config, device=dev)
+    # Under --model-parallel the fuser heads are born split: no rank holds
+    # a whole head or its optimizer state.
+    state = create_ssl_state(config, device=dev, mesh=mesh if mesh.world > 1 else None)
+    if mesh.model > 1:
+        logger.info(f"=> fuser heads tensor-parallel over {mesh.model} ranks")
     # ImageNet init is the reference default (backbone.py:58-63);
     # --imagenet-weights none opts out.
     if args.imagenet_weights != "none":
@@ -257,9 +209,9 @@ def _train(args, dev, defaults, cmdline: str, logger) -> dict:
         loader.files = camelyon.resample(start_epoch)
         logger.info(f"=> camelyon resampling rejoined at epoch {start_epoch}")
 
-    step_fn = make_fused_step(config, aug_cfg, device=dev)
+    step_fn = make_fused_step(config, aug_cfg, device=dev, mesh=state.mesh)
     gen = torch.Generator(device=dev)
-    tb_writer, wandb_run = _trackers(args, logger)
+    tb_writer, wandb_run = _trackers(args, logger) if mesh.is_main else (None, None)
 
     best_loss = 255.0
     history = []
@@ -329,7 +281,7 @@ def _train(args, dev, defaults, cmdline: str, logger) -> dict:
             shutil.copyfile(log_txt, os.path.join(wandb_run.dir, "train_output.log"))
         wandb_run.finish()
     return {"log_dir": args.log_dir, "start_epoch": start_epoch, "epochs": history,
-            "best_loss": best_loss, "state": state}
+            "best_loss": best_loss, "state": state, "process_group": group_info(mesh)}
 
 
 def _trackers(args, logger, job_type: str = "pretrain"):
@@ -459,7 +411,8 @@ def build_parser():
     parser.add_argument("--profile-steps", type=int, default=0,
                         help="trace the first N steps with torch.profiler into <log-dir>/profile")
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="fuser-head tensor parallelism (not ported: 1 only)")
+                        help="fuser-head tensor parallelism: split the inter_* heads over "
+                        "groups of this many adjacent ranks (must divide the world)")
     parser.add_argument("--allow-random-init", action="store_true",
                         help="proceed from random init when ImageNet weights cannot be "
                         "resolved (default: hard error, since the published setup always "

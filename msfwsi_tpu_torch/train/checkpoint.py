@@ -13,6 +13,12 @@ are not read; ``tools/export_torch.py`` converts them. Fine-tuning keeps
 the reference's ``best_ft_model.pth.tar``, ``{epoch, arch, state_dict}``
 of the HookNet under the ``module.`` prefix.
 
+In a distributed run (a state with a ``mesh``) every rank calls the savers:
+the fuser heads' slices and their optimizer state are gathered over the
+model group (``parallel/tp.py``) and rank 0 alone writes the full file, the
+one a single-process run writes; a resume cuts the file back to this
+rank's slices.
+
 :func:`jax_msfwsi_to_torch` takes the ``params`` and ``batch_stats`` of the
 JAX package's MSFWSI as nested dicts of numpy arrays and returns the port's
 state dict: the reference's key names (torchvision ResNet layout,
@@ -28,6 +34,8 @@ import re
 
 import numpy as np
 import torch
+
+from ..parallel import tp
 
 __all__ = ["jax_msfwsi_to_torch", "jax_hooknet_to_torch", "checkpoint_path", "save_checkpoint",
            "resolve_checkpoint_arg", "latest_checkpoint", "load_torch_file", "restore_checkpoint",
@@ -51,15 +59,20 @@ def save_checkpoint(log_dir: str, state, epoch: int, arch: str) -> str:
     """Write ``state`` after (0-based) ``epoch`` as the reference's
     ``checkpoint_{epoch:04d}.pth.tar``, atomically (a temporary file, then
     ``os.replace``). ``epoch`` in the payload counts the epochs done, as
-    the reference stores it; a resume takes its start epoch from the name."""
+    the reference stores it; a resume takes its start epoch from the name.
+    Distributed: a collective; the split tensors are gathered and rank 0
+    writes."""
     path = checkpoint_path(log_dir, epoch)
+    mesh = getattr(state, "mesh", None)
     payload = {
         "epoch": epoch + 1,
         "arch": arch,
-        "state_dict": {f"module.{k}": v for k, v in state.model.state_dict().items()},
-        "optimizer": state.optimizer.state_dict(),
+        "state_dict": {f"module.{k}": v for k, v in tp.full_state_dict(state.model).items()},
+        "optimizer": tp.gather_optimizer_state(state.optimizer, state.model),
         "scaler": None,  # bf16 autocast needs no GradScaler
     }
+    if mesh is not None and not mesh.is_main:
+        return path
     return _save_atomic(payload, path)
 
 
@@ -141,16 +154,18 @@ def restore_checkpoint(path: str, state, map_location) -> bool:
     """Load a ``.pth.tar`` into ``state`` in place: the model's weights and
     BatchNorm statistics (keys with or without ``module.``) and, when the
     file has them, the optimizer's state and step. Returns whether the
-    optimizer was restored (False for a file the JAX package wrote)."""
+    optimizer was restored (False for a file the JAX package wrote). A
+    model split over a model group takes its slices of the file."""
     obj = _load(path, map_location)
     sd = obj.get("state_dict", obj)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    state.model.load_state_dict(sd, strict=True)
+    state.model.load_state_dict(tp.shard_state_dict(state.model, sd), strict=True)
     opt = obj.get("optimizer")
     if not opt:
         return False
     try:
-        state.optimizer.load_state_dict(opt)
+        state.optimizer.load_state_dict(tp.shard_optimizer_state(state.optimizer, state.model,
+                                                                 opt))
     except (KeyError, ValueError) as e:
         raise ValueError(f"{path}: its optimizer state does not fit this run's optimizer "
                          f"(another --inter-opt?): {e!r}") from e

@@ -13,6 +13,11 @@ masks are 0, so every pixel is ignored and they count nowhere. The counts
 accumulate on the device as a (4, C) int64 tensor and are fetched once per
 slide. On the card, chunk i+1 is copied from pinned memory on a side stream
 while chunk i runs.
+
+Under a ``mesh`` each data rank takes its contiguous slice of every chunk
+(the chunk axis split over ``"data"``, as the JAX package shards it) and
+the slide's counts are summed over the ranks, one all-reduce a slide:
+every rank gets every score.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..data.pipeline import AugConfig, _to_float, make_seg_val_views
@@ -144,13 +150,29 @@ def _chunks_cuda(arrays, chunk: int, device):
         yield out
 
 
+def shard_chunks(arrays: tuple, chunk: int, mesh) -> tuple[tuple, int]:
+    """This data rank's rows of ``arrays`` padded to a multiple of ``chunk``:
+    of every chunk, the rank's contiguous ``chunk / ranks`` rows. Returns
+    them and the per-rank chunk; without a mesh, the padded arrays and
+    ``chunk``."""
+    arrays = tuple(_pad_to_multiple(np.ascontiguousarray(a), chunk) for a in arrays)
+    if mesh is None or mesh.data == 1:
+        return arrays, chunk
+    if chunk % mesh.data:
+        raise ValueError(f"chunk {chunk} is not divisible by the {mesh.data} data ranks")
+    part = chunk // mesh.data
+    return tuple(np.ascontiguousarray(
+        a.reshape(-1, mesh.data, part, *a.shape[1:])[:, mesh.data_rank].reshape(-1, *a.shape[1:]))
+        for a in arrays), part
+
+
 def _run_chunked_stats(stats_fn: Callable, arrays: tuple, num_classes: int, chunk: int,
-                       device) -> tuple[dict, tuple]:
+                       device, mesh=None) -> tuple[dict, tuple]:
     """Pad ``arrays`` to a multiple of ``chunk``, run ``stats_fn`` over the
     chunks with the counts kept on ``device``, and fetch the sums once.
     Returns (micro scores, (tp, fp, fn, tn) sums as int64 numpy)."""
     dev = resolve_device(device)
-    arrays = tuple(_pad_to_multiple(np.ascontiguousarray(a), chunk) for a in arrays)
+    arrays, chunk = shard_chunks(arrays, chunk, mesh)
     acc = torch.zeros((4, num_classes), dtype=torch.int64, device=dev)
     if dev.type == "cuda":
         chunks = _chunks_cuda(arrays, chunk, dev)
@@ -159,6 +181,8 @@ def _run_chunked_stats(stats_fn: Callable, arrays: tuple, num_classes: int, chun
                   for lo in range(0, arrays[0].shape[0], chunk))
     for args in chunks:
         acc = stats_fn(*args, acc)
+    if mesh is not None and mesh.data > 1:
+        dist.all_reduce(acc, group=mesh.data_group)
     sums = acc.cpu().numpy()  # the slide's one device-to-host fetch
     micro = {
         "f1": float(f1_score(*sums, reduction="micro")),
@@ -169,17 +193,18 @@ def _run_chunked_stats(stats_fn: Callable, arrays: tuple, num_classes: int, chun
 
 
 def validate_slide_u8(stats_fn: Callable, imgs_u8, masks_u8, num_classes: int,
-                      chunk: int = 128, device="cuda"):
+                      chunk: int = 128, device="cuda", mesh=None):
     """One slide from raw uint8 tiles with a :func:`make_chunk_stats_u8`
     function."""
-    return _run_chunked_stats(stats_fn, (imgs_u8, masks_u8), num_classes, chunk, device)
+    return _run_chunked_stats(stats_fn, (imgs_u8, masks_u8), num_classes, chunk, device, mesh)
 
 
 def validate_slide_hostviews(stats_fn: Callable, ctx_u8, tgt_u8, tmask, num_classes: int,
-                             chunk: int = 128, device="cuda"):
+                             chunk: int = 128, device="cuda", mesh=None):
     """One slide from host-built uint8 views with a
     :func:`make_chunk_stats_hostviews` function."""
-    return _run_chunked_stats(stats_fn, (ctx_u8, tgt_u8, tmask), num_classes, chunk, device)
+    return _run_chunked_stats(stats_fn, (ctx_u8, tgt_u8, tmask), num_classes, chunk, device,
+                              mesh)
 
 
 class SlideScores:
@@ -210,17 +235,19 @@ class SlideScores:
 
 
 def validate_slides(stats_fn: Callable, slides, val_views: str, class_names,
-                    chunk: int = 128, device="cuda", on_slide: Callable | None = None):
+                    chunk: int = 128, device="cuda", on_slide: Callable | None = None,
+                    mesh=None):
     """The CLI's per-slide validation loop: ``slides`` yields ``(ctx_u8,
     tgt_u8, tmask)`` for "host" views or ``(imgs_u8, masks_u8)`` for
     "device" views; the next slide's decode and host views are made on a
     background thread while the current one runs. ``on_slide(i, micro)`` is
-    called after each slide. Returns the :class:`SlideScores`."""
+    called after each slide; ``mesh``: the chunks split over its data ranks.
+    Returns the :class:`SlideScores`."""
     validate_one = validate_slide_hostviews if val_views == "host" else validate_slide_u8
     scores = SlideScores(class_names)
     for i, item in enumerate(prefetch_iter(slides)):
         micro, sums = validate_one(stats_fn, *item, num_classes=len(scores.class_names),
-                                   chunk=chunk, device=device)
+                                   chunk=chunk, device=device, mesh=mesh)
         scores.update(micro, sums)
         if on_slide is not None:
             on_slide(i, micro)

@@ -27,12 +27,26 @@ backward and leaves the weight's ``.grad`` at None. Equal to
 :class:`Adafactor` on ``dW`` up to float reassociation: the fused path
 normalizes the statistic along ``d_in`` where optax normalizes the one
 along the smaller axis, and both means are the mean of ``g^2``.
+
+Distributed (``parallel/``): both optimizers take ``shards``, the
+:class:`~..parallel.tp.Shard` of each weight split over the model group,
+and compute the statistics of the full weight: a mean along the split axis
+is a sum all-reduced over the model group, and a factor that keeps the
+split axis is stored split. The fused one also takes the ``data_group``:
+each rank's ``(X, dY)`` rows come from its part of the batch, so they are
+gathered over the group, dY scaled by 1/ranks (each rank's loss is the mean
+over its own rows), before the Gram products: ``dW`` of the global batch
+has cross-rank terms in its squares, which no sum of per-rank statistics
+holds.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import gather_rows
 
 __all__ = ["MIN_DIM_SIZE_TO_FACTOR", "DECAY_RATE", "EPS", "BLOCK_ROWS", "factored_dims", "is_factored_kernel", "fac_path_str",
            "FactorStash", "Adafactor", "FusedOuterAdafactor", "OptimizerGroups"]
@@ -60,11 +74,14 @@ def factored_dims(shape):
     return int(order[-2]), int(order[-1])
 
 
-def is_factored_kernel(name: str, p: torch.Tensor) -> bool:
+def is_factored_kernel(name: str, p: torch.Tensor, shape=None) -> bool:
     """True for the inter-head ``Linear`` weights that optax would factor
     (2-D, both sides at least ``MIN_DIM_SIZE_TO_FACTOR``): the weights the
-    fused path updates. ``name`` is the parameter's name in ``MSFWSI``."""
-    return name.startswith("inter_") and p.ndim == 2 and min(p.shape) >= MIN_DIM_SIZE_TO_FACTOR
+    fused path updates. ``name`` is the parameter's name in ``MSFWSI``;
+    ``shape`` its full shape where ``p`` is this rank's slice of a split
+    weight (the rule reads the whole weight, as under GSPMD)."""
+    shape = tuple(p.shape if shape is None else shape)
+    return name.startswith("inter_") and len(shape) == 2 and min(shape) >= MIN_DIM_SIZE_TO_FACTOR
 
 
 def fac_path_str(name: str) -> str:
@@ -125,6 +142,16 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
     return (v.float() ** -0.5).to(v.dtype)
 
 
+def _mean(t: torch.Tensor, dim: int, shard, keepdim: bool = False) -> torch.Tensor:
+    """``t.mean(dim)``, the axis split over ``shard.group`` when ``shard``
+    is given (then ``shard.full`` long in all)."""
+    if shard is None:
+        return t.mean(dim, keepdim=keepdim)
+    out = t.sum(dim, keepdim=keepdim)
+    dist.all_reduce(out, group=shard.group)
+    return out / shard.full
+
+
 def _init_step(state: dict) -> int:
     if "step" not in state:
         state["step"] = torch.tensor(0.0)
@@ -138,8 +165,17 @@ class Adafactor(torch.optim.Optimizer):
     largest axis) and ``v_col`` (without the second-largest), else ``v``,
     all but ``step`` in the parameter's dtype."""
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, shards: dict | None = None):
         super().__init__(params, dict(lr=lr))
+        self.shards = shards or {}
+
+    @staticmethod
+    def state_axes(full_shape) -> dict:
+        """The parameter axis each factor of a parameter of ``full_shape``
+        keeps: ``v_row`` the second-largest axis ``d1``, ``v_col`` the
+        largest ``d0`` (none where the parameter is not factored)."""
+        dims = factored_dims(full_shape)
+        return {} if dims is None else {"v_row": dims[0], "v_col": dims[1]}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -153,7 +189,8 @@ class Adafactor(torch.optim.Optimizer):
                     continue
                 state = self.state[p]
                 step = _init_step(state)
-                dims = factored_dims(p.shape)
+                shard = self.shards.get(p)
+                dims = factored_dims(shard.full_shape(p.shape) if shard else p.shape)
                 if "v" not in state and "v_row" not in state:
                     if dims is None:
                         state["v"] = torch.zeros_like(p)
@@ -170,10 +207,14 @@ class Adafactor(torch.optim.Optimizer):
                     u = g * _rsqrt(v)
                 else:
                     d1, d0 = dims
-                    state["v_row"] = v_row = _ema(decay, state["v_row"], g2.mean(d0))
-                    state["v_col"] = v_col = _ema(decay, state["v_col"], g2.mean(d1))
+
+                    def on(d):  # the shard when it splits axis d
+                        return shard if shard is not None and shard.dim == d else None
+
+                    state["v_row"] = v_row = _ema(decay, state["v_row"], _mean(g2, d0, on(d0)))
+                    state["v_col"] = v_col = _ema(decay, state["v_col"], _mean(g2, d1, on(d1)))
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_factor = _rsqrt(v_row / v_row.mean(reduced_d1, keepdim=True))
+                    row_factor = _rsqrt(v_row / _mean(v_row, reduced_d1, on(d1), keepdim=True))
                     u = g * row_factor.unsqueeze(d0) * _rsqrt(v_col).unsqueeze(d1)
                 del g, g2
                 p.copy_(p.float() - group["lr"] * u)
@@ -187,9 +228,18 @@ class FusedOuterAdafactor(torch.optim.Optimizer):
     must be None (the dense gradient is never formed). State per weight:
     ``step``, ``v_row`` (d_in,) and ``v_col`` (d_out,) in its dtype."""
 
-    def __init__(self, params, lr: float, stash: FactorStash):
+    def __init__(self, params, lr: float, stash: FactorStash, shards: dict | None = None,
+                 data_group=None):
         super().__init__(params, dict(lr=lr))
         self.stash = stash
+        self.shards = shards or {}
+        self.data_group = data_group
+
+    @staticmethod
+    def state_axes(full_shape) -> dict:
+        """The weight axis each factor keeps: ``v_row`` the input axis,
+        ``v_col`` the output axis."""
+        return {"v_row": 1, "v_col": 0}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -205,22 +255,32 @@ class FusedOuterAdafactor(torch.optim.Optimizer):
                                        "layer's factor tap is missing")
                 state = self.state[w]
                 step = _init_step(state)
-                n_out, n_in = w.shape
+                shard = self.shards.get(w)
+                n_out, n_in = shard.full_shape(w.shape) if shard else w.shape
                 if "v_row" not in state:
-                    state["v_row"] = w.new_zeros(n_in)
-                    state["v_col"] = w.new_zeros(n_out)
+                    state["v_row"] = w.new_zeros(w.shape[1])
+                    state["v_col"] = w.new_zeros(w.shape[0])
                 x, dy = self.stash.take(w)
+                if self.data_group is not None:
+                    x, dy = gather_rows(x, self.data_group), gather_rows(dy, self.data_group)
                 xf, dyf = x.float(), dy.float()
-                # Row and column mean squares of dW = xf^T dyf (Gram trick).
-                row_sq = (xf * ((dyf @ dyf.T) @ xf)).sum(0)
-                col_sq = (dyf * ((xf @ xf.T) @ dyf)).sum(0)
+                if self.data_group is not None:
+                    dyf = dyf / dist.get_world_size(self.data_group)
+                # Row and column mean squares of dW = xf^T dyf (Gram trick);
+                # the Gram matrix over a split axis is summed over the shards.
+                gram_dy, gram_x = dyf @ dyf.T, xf @ xf.T
+                if shard is not None:
+                    dist.all_reduce(gram_dy if shard.dim == 0 else gram_x, group=shard.group)
+                row_sq = (xf * (gram_dy @ xf)).sum(0)
+                col_sq = (dyf * (gram_x @ dyf)).sum(0)
                 decay = _decay(step)
                 state["v_row"] = v_row = _ema(decay, state["v_row"], row_sq / n_out + EPS)
                 state["v_col"] = v_col = _ema(decay, state["v_col"], col_sq / n_in + EPS)
                 # The factors in the state's dtype, as optax; applied in fp32.
-                xs = xf * _rsqrt(v_row / v_row.mean()).float()
+                in_split = shard if shard is not None and shard.dim == 1 else None
+                xs = xf * _rsqrt(v_row / _mean(v_row, 0, in_split)).float()
                 dys = dyf * _rsqrt(v_col).float()
-                for r in range(0, n_out, BLOCK_ROWS):
+                for r in range(0, w.shape[0], BLOCK_ROWS):
                     rows = w[r : r + BLOCK_ROWS]
                     rows.copy_(torch.addmm(rows.float(), dys[:, r : r + BLOCK_ROWS].T, xs,
                                            alpha=-lr))

@@ -17,6 +17,12 @@ parameters, BatchNorm statistics and loss. ``accum_steps`` > 1 runs the
 interleaved microbatches of ``train/ssl.py::slice_microbatch`` and one
 Adam update on their mean gradient, the Dice loss averaged per microbatch;
 ``use_ac`` checkpoints the branch encoders' blocks. Nothing is compiled.
+
+Distributed (a state with a ``mesh``, data parallelism only, as the JAX
+package's mesh step): each rank trains on its contiguous rows of the global
+batch, BatchNorm and the Dice sums reduce over the data group, and the
+gradients are averaged once per step; a wrap-padded trailing batch keeps
+its pads in the BatchNorm statistics and out of the Dice loss.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from typing import Sequence
 import torch
 
 from .. import resolve_device
-from ..data.pipeline import AugConfig, make_seg_train_views
+from ..data.pipeline import AugConfig, make_seg_train_views, sample_seg_train_views
 from ..models.hooknet import HookNet, build_hooknet
+from ..models.resnet import sync_batchnorm
 from ..ops.losses import dice_loss
 from ..ops.metrics import get_stats
+from ..parallel.mesh import Mesh, average_gradients, rank_draws
 from .ssl import accumulate, slice_microbatch
 
 __all__ = [
@@ -91,23 +99,27 @@ class SegTrainState:
     model: HookNet
     optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: Mesh | None = None
 
 
 def make_finetune_optimizer(model: HookNet, config: FinetuneConfig) -> torch.optim.Adam:
     return torch.optim.Adam(model.parameters(), lr=config.init_lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def create_finetune_state(config: FinetuneConfig, device="cuda",
-                          model: HookNet | None = None) -> SegTrainState:
+def create_finetune_state(config: FinetuneConfig, device="cuda", model: HookNet | None = None,
+                          mesh: Mesh | None = None) -> SegTrainState:
     """HookNet (initialized from ``config.seed`` unless given) and Adam on
-    ``device``."""
+    ``device``; under a ``mesh`` its BatchNorm reduces over the data
+    group."""
     dev = resolve_device(device)
     if model is None:
         gen = torch.Generator().manual_seed(config.seed)
         model = build_hooknet(gen, device=dev, arch=config.arch, classes=config.num_classes,
                               remat=config.use_ac)
     model = model.to(dev)
-    return SegTrainState(model=model, optimizer=make_finetune_optimizer(model, config))
+    if mesh is not None:
+        sync_batchnorm(model, mesh.data_group)
+    return SegTrainState(model=model, optimizer=make_finetune_optimizer(model, config), mesh=mesh)
 
 
 def load_ssl_encoders(state: SegTrainState, ssl_state_dict: dict,
@@ -128,12 +140,14 @@ def load_ssl_encoders(state: SegTrainState, ssl_state_dict: dict,
     return state
 
 
-def finetune_loss_fn(model: HookNet, batch: dict, lam: float, num_fg: int, amp: bool = False):
+def finetune_loss_fn(model: HookNet, batch: dict, lam: float, num_fg: int, amp: bool = False,
+                     group=None):
     """``(loss, target logits)`` of one batch in train mode. A term whose
     weight is 0 is not computed, as in the JAX package: with lam 1 the
     context head gets no gradient. Adam then skips its ``None`` gradient
     where optax applies a zero update; the weights are the same either way,
-    since a parameter whose gradient has always been 0 has zero moments."""
+    since a parameter whose gradient has always been 0 has zero moments.
+    ``group``: the data-parallel group the Dice sums reduce over."""
     classes = list(range(1, num_fg + 1))
     valid = batch.get("valid")  # (N,) mask of a wrap-padded trailing batch
     device_type = batch["context"].device.type
@@ -142,10 +156,10 @@ def finetune_loss_fn(model: HookNet, batch: dict, lam: float, num_fg: int, amp: 
     loss = 0.0
     if (1.0 - lam) != 0.0:
         loss = loss + (1.0 - lam) * dice_loss(ctx_logits, batch["context_mask"], classes=classes,
-                                              sample_mask=valid)
+                                              sample_mask=valid, group=group)
     if lam != 0.0:
         loss = loss + lam * dice_loss(tgt_logits, batch["target_mask"], classes=classes,
-                                      sample_mask=valid)
+                                      sample_mask=valid, group=group)
     return loss, tgt_logits
 
 
@@ -158,17 +172,21 @@ def finetune_train_step(state: SegTrainState, batch: dict, lam: float, num_fg: i
     the batch has one. Reading them synchronizes, so the caller decides
     when. With ``accum_steps`` > 1 the loss is the mean of the
     microbatches' (a microbatch all of padding gives 0) and the counts are
-    in the batch's sample order."""
+    in the batch's sample order. Under ``state.mesh`` the batch is this
+    data rank's part, the loss the global batch's and the counts this
+    rank's samples'."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
+    group = state.mesh.data_group if state.mesh is not None else None
 
     def loss_fn(mb):
-        loss, logits = finetune_loss_fn(model, mb, lam, num_fg, amp)
+        loss, logits = finetune_loss_fn(model, mb, lam, num_fg, amp, group)
         return loss, logits.detach()
 
     parts = accumulate(model, accum_steps, lambda i: slice_microbatch(batch, accum_steps, i),
                        loss_fn)
+    average_gradients(model.parameters(), group)
     state.optimizer.step()
     state.step += 1
     loss = sum(loss for loss, _ in parts) * (1.0 / accum_steps)
@@ -188,7 +206,8 @@ def finetune_train_step(state: SegTrainState, batch: dict, lam: float, num_fg: i
     return metrics
 
 
-def make_fused_finetune_step(config: FinetuneConfig, aug_cfg: AugConfig, device="cuda"):
+def make_fused_finetune_step(config: FinetuneConfig, aug_cfg: AugConfig, device="cuda",
+                             mesh: Mesh | None = None):
     """On-device seg views (uint8 tiles and masks -> context/target pairs)
     followed by the train step, the eager counterpart of the JAX package's
     ``make_jitted_fused_finetune_step``.
@@ -197,12 +216,18 @@ def make_fused_finetune_step(config: FinetuneConfig, aug_cfg: AugConfig, device=
     view_params=None, valid=None)`` draws the view parameters from
     ``generator`` (on ``device``) or applies ``view_params`` (as
     ``data.pipeline.sample_seg_train_views`` returns them). ``valid`` (B,)
-    bool keeps wrap-padded samples out of the Dice loss."""
+    bool keeps wrap-padded samples out of the Dice loss.
+
+    Under a ``mesh`` the tiles, masks and ``valid`` are this data rank's
+    contiguous rows of the global batch; the view parameters are drawn (or
+    given) for the global batch and this rank applies its rows."""
     dev = resolve_device(device)
     lam = float(config.lam)
 
     def step(state: SegTrainState, imgs_u8, masks_u8, generator=None, view_params=None,
              valid=None):
+        view_params = rank_draws(mesh, imgs_u8.shape[0], view_params,
+                                 lambda total: sample_seg_train_views(generator, total, aug_cfg))
         (ctx, tgt), (cm, tm) = make_seg_train_views(imgs_u8.to(dev), masks_u8.to(dev), aug_cfg,
                                                     generator, params=view_params)
         batch = {"context": ctx, "target": tgt, "context_mask": cm, "target_mask": tm}

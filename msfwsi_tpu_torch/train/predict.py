@@ -13,7 +13,8 @@ memory on a side stream as soon as the chunk is queued; the host waits once
 per slide. The chunks go up through the validation's pinned side-stream
 path (:func:`.evaluate._chunks_cuda`). :func:`predict_slide` serves any
 chunk function that returns a tuple of tensors, the feature extraction's
-too.
+too. Under a ``mesh`` each data rank runs its slice of every chunk and the
+outputs are gathered to rank 0, which alone gets the slide's arrays.
 """
 
 from __future__ import annotations
@@ -22,12 +23,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..data.pipeline import AugConfig, _to_float, make_seg_val_views
 from ..ops import augment as A
 from ..ops.geometry import TileGrid
-from .evaluate import _chunks_cuda, _eval_forward, _pad_to_multiple
+from .evaluate import _chunks_cuda, _eval_forward, shard_chunks
 
 __all__ = [
     "HEADS",
@@ -123,15 +125,17 @@ def _run_cuda(fn: Callable, arrays: tuple, chunk: int, total: int, dev) -> list:
     return host
 
 
-def predict_slide(fn: Callable, arrays: tuple, chunk: int = 128, device="cuda"
-                  ) -> tuple[np.ndarray, ...]:
+def predict_slide(fn: Callable, arrays: tuple, chunk: int = 128, device="cuda", mesh=None
+                  ) -> tuple[np.ndarray, ...] | None:
     """Run one slide's per-tile ``arrays`` (``(ctx_u8, tgt_u8)`` for host
     views, ``(imgs_u8,)`` for raw tiles) through a chunk function ``fn``,
     padded to a multiple of ``chunk``. Returns one numpy array per output
-    of ``fn``, trimmed to the slide's tile count."""
+    of ``fn``, trimmed to the slide's tile count. Under a ``mesh`` with
+    several data ranks (every rank calls it): rank 0 gets the arrays, the
+    others None."""
     dev = resolve_device(device)
     n = int(arrays[0].shape[0])
-    arrays = tuple(_pad_to_multiple(np.ascontiguousarray(a), chunk) for a in arrays)
+    arrays, chunk = shard_chunks(arrays, chunk, mesh)
     total = arrays[0].shape[0]
     if dev.type == "cuda":
         host = _run_cuda(fn, arrays, chunk, total, dev)
@@ -139,7 +143,16 @@ def predict_slide(fn: Callable, arrays: tuple, chunk: int = 128, device="cuda"
         outs = [fn(*(torch.from_numpy(a[lo : lo + chunk]) for a in arrays))
                 for lo in range(0, total, chunk)]
         host = [torch.cat(parts) for parts in zip(*outs)]
-    return tuple(h.numpy()[:n].copy() for h in host)
+    local = [h.numpy() for h in host]
+    if mesh is None or mesh.data == 1:
+        return tuple(h[:n].copy() for h in local)
+    parts = [None] * mesh.data if mesh.is_main else None
+    dist.gather_object(local, parts, dst=0, group=mesh.data_group)
+    if not mesh.is_main:
+        return None
+    # each rank holds rows [r * chunk, (r + 1) * chunk) of every whole chunk
+    return tuple(np.stack([p[i].reshape(-1, chunk, *p[i].shape[1:]) for p in parts], axis=1)
+                 .reshape(-1, *parts[0][i].shape[1:])[:n].copy() for i in range(len(local)))
 
 
 def stitch_context_preds(preds: np.ndarray, indices, grid: TileGrid, seg_size: int = 256

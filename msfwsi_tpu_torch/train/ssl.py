@@ -15,6 +15,13 @@ their big weights (``"fused_adafactor"``, ``train/factored.py``), bf16
 head storage, gradient accumulation over interleaved microbatches
 (``accum_steps``) and per-block activation checkpointing (``use_ac``,
 ``remat_stages``).
+
+Distributed, as the JAX package's mesh step (``parallel/``): with a
+:class:`~..parallel.mesh.Mesh` each data rank trains on its contiguous rows
+of the global batch, BatchNorm reduces its statistics over the data group,
+the fuser heads are split over the model group, and the gradients are
+averaged once per step, after accumulation; a step equals the
+single-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -24,11 +31,15 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
-from ..data.pipeline import AugConfig, make_ssl_views, target_keys
+from ..data.pipeline import AugConfig, make_ssl_views, sample_ssl_views, target_keys
 from ..models.backbone import MSFWSI, build_msfwsi
+from ..models.resnet import sync_batchnorm
 from ..ops.losses import msfwsi_loss
+from ..parallel import tp
+from ..parallel.mesh import Mesh, rank_draws
 from .factored import (Adafactor, FactorStash, FusedOuterAdafactor, OptimizerGroups,
                        is_factored_kernel)
 
@@ -111,12 +122,14 @@ INTER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass
 class SSLTrainState:
     """The model, its optimizer and step count; ``stash`` holds the fused
-    Adafactor's gradient factors (``inter_opt="fused_adafactor"``)."""
+    Adafactor's gradient factors (``inter_opt="fused_adafactor"``);
+    ``mesh`` the rank layout of a distributed run (None: one process)."""
 
     model: MSFWSI
     optimizer: torch.optim.Optimizer | OptimizerGroups
     step: int = 0
     stash: FactorStash | None = None
+    mesh: Mesh | None = None
 
 
 def _param_group(name: str) -> str:
@@ -127,7 +140,8 @@ def _param_group(name: str) -> str:
     raise ValueError(f"parameter {name} not in any optimizer group")
 
 
-def make_ssl_optimizer(model: MSFWSI, config: SSLConfig, stash: FactorStash | None = None):
+def make_ssl_optimizer(model: MSFWSI, config: SSLConfig, stash: FactorStash | None = None,
+                       mesh: Mesh | None = None):
     """The groups of the JAX package's ``make_ssl_optimizer``, each at
     ``init_lr * ms_lr[i]``; no weight decay (the reference parses ``--wd``
     but never passes it to Adam). With ``inter_opt="adam"``, one Adam over
@@ -135,14 +149,17 @@ def make_ssl_optimizer(model: MSFWSI, config: SSLConfig, stash: FactorStash | No
     :class:`OptimizerGroups`: Adam on ``context`` and ``target``,
     :class:`Adafactor` on ``inter``, and with ``fused_adafactor`` the
     :class:`FusedOuterAdafactor` on the factored inter-head weights
-    (``inter_fac``), fed by ``stash``."""
+    (``inter_fac``), fed by ``stash``. Under a ``mesh`` the Adafactors take
+    the fuser heads' splits and the fused one the data group."""
     fused = config.inter_opt == "fused_adafactor"
     if fused and stash is None:
         raise ValueError("inter_opt 'fused_adafactor' needs the FactorStash its taps fill")
     groups = {"context": [], "target": [], "inter": [], "inter_fac": []}
+    shards = tp.param_shards(model)
     for name, p in model.named_parameters():
         group = _param_group(name)
-        if fused and is_factored_kernel(name, p):
+        full = shards[p].full_shape(p.shape) if p in shards else None
+        if fused and is_factored_kernel(name, p, full):
             group = "inter_fac"
         groups[group].append(p)
     lrs = {g: config.init_lr * m for g, m in zip(("context", "target", "inter"), config.ms_lr)}
@@ -154,29 +171,37 @@ def make_ssl_optimizer(model: MSFWSI, config: SSLConfig, stash: FactorStash | No
     if config.inter_opt == "adam":
         return adam(("context", "target", "inter"))
     opts = {"adam": adam(("context", "target")),
-            "adafactor": Adafactor(groups["inter"], lr=lrs["inter"])}
+            "adafactor": Adafactor(groups["inter"], lr=lrs["inter"], shards=shards)}
     if fused:
-        opts["fused_adafactor"] = FusedOuterAdafactor(groups["inter_fac"], lr=lrs["inter"],
-                                                      stash=stash)
+        opts["fused_adafactor"] = FusedOuterAdafactor(
+            groups["inter_fac"], lr=lrs["inter"], stash=stash, shards=shards,
+            data_group=mesh.data_group if mesh is not None else None)
     return OptimizerGroups(opts)
 
 
-def create_ssl_state(config: SSLConfig, device="cuda",
-                     model: MSFWSI | None = None) -> SSLTrainState:
+def create_ssl_state(config: SSLConfig, device="cuda", model: MSFWSI | None = None,
+                     mesh: Mesh | None = None) -> SSLTrainState:
     """Model (initialized from ``config.seed`` unless given) and optimizer
     on ``device``; with ``fused_adafactor`` the factored weights' layers
-    are tapped into the state's stash."""
+    are tapped into the state's stash. Under a ``mesh`` BatchNorm reduces
+    over the data group and the fuser heads are split over the model group:
+    born split when the model is made here, a given full model cut to this
+    rank's slices."""
     dev = resolve_device(device)
     if model is None:
         gen = torch.Generator().manual_seed(config.seed)
-        model = build_msfwsi(gen, device=dev, **config.model_kwargs())
+        model = build_msfwsi(gen, device=dev, mesh=mesh, **config.model_kwargs())
+    elif mesh is not None and not tp.named_shards(model):
+        tp.shard_msfwsi(model, mesh)
     model = model.to(dev)
+    if mesh is not None:
+        sync_batchnorm(model, mesh.data_group)
     stash = None
     if config.inter_opt == "fused_adafactor":
         stash = FactorStash()
         model.tap_factored(stash)
-    return SSLTrainState(model=model, optimizer=make_ssl_optimizer(model, config, stash),
-                         stash=stash)
+    return SSLTrainState(model=model, optimizer=make_ssl_optimizer(model, config, stash, mesh),
+                         stash=stash, mesh=mesh)
 
 
 def ssl_loss_fn(model: MSFWSI, batch, fuser_weights: Sequence[float]):
@@ -237,7 +262,10 @@ def ssl_train_step(state: SSLTrainState, batch, fuser_weights: Sequence[float],
     (reading them synchronizes, so the caller decides when). With
     ``accum_steps`` > 1 the step runs that many microbatches (the
     interleaved slices of ``batch``, or ``microbatch_fn(i)``) and one
-    optimizer update on their mean gradient; the losses are their means."""
+    optimizer update on their mean gradient; the losses are their means.
+    Under ``state.mesh`` the batch is this data rank's part; the gradients
+    are averaged over the ranks once, after the microbatches, and the
+    losses are the global batch's."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
@@ -252,6 +280,7 @@ def ssl_train_step(state: SSLTrainState, batch, fuser_weights: Sequence[float],
 
     try:
         parts = accumulate(model, accum_steps, microbatch_fn, loss_fn, state.stash)
+        tp.sync_gradients(model, state.mesh)
         state.optimizer.step()
     finally:
         if state.stash is not None:
@@ -261,10 +290,16 @@ def ssl_train_step(state: SSLTrainState, batch, fuser_weights: Sequence[float],
     metrics = {"loss": sum(loss for loss, _ in parts) * inv}
     for k in parts[0][1]:
         metrics[f"loss_{k}"] = sum(per_path[k] for _, per_path in parts) * inv
+    group = state.mesh.data_group if state.mesh is not None else None
+    if group is not None:
+        flat = torch.stack([v.float() for v in metrics.values()])
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+        metrics = dict(zip(metrics, flat.unbind()))
     return metrics
 
 
-def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda"):
+def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda", mesh: Mesh | None = None):
     """On-device augmentation (uint8 tiles -> 4 views + jigsaw) followed by
     the train step — the eager counterpart of the JAX package's
     ``make_jitted_fused_step``.
@@ -276,6 +311,11 @@ def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda"):
     slice of the tiles (``slice_microbatch``), drawn in turn from
     ``generator``, or from ``view_params[i]`` (a list, one entry per
     microbatch): the full batch's views never exist at once.
+
+    Under a ``mesh`` the tiles are this data rank's contiguous part of the
+    global batch: every rank draws (or is given) the view parameters of the
+    global (micro)batch and applies its own rows, so a world-N step sees
+    the views of the single-process step.
     """
     dev = resolve_device(device)
     fuser_weights = tuple(config.fuser_weights)
@@ -287,9 +327,12 @@ def make_fused_step(config: SSLConfig, aug_cfg: AugConfig, device="cuda"):
             raise ValueError(f"{len(view_params)} view parameter sets for {accum} microbatches")
 
         def microbatch_fn(i):
+            tiles = slice_microbatch(tiles_u8, accum, i)
             params = view_params if accum == 1 or view_params is None else view_params[i]
-            return make_ssl_views(slice_microbatch(tiles_u8, accum, i), aug_cfg, generator,
-                                  shuffle_views=config.shuffle_views, params=params)
+            params = rank_draws(mesh, tiles.shape[0], params, lambda total: sample_ssl_views(
+                generator, total, tiles.shape[1:3], aug_cfg))
+            return make_ssl_views(tiles, aug_cfg, generator, shuffle_views=config.shuffle_views,
+                                  params=params)
 
         return ssl_train_step(state, None, fuser_weights, amp=config.amp, accum_steps=accum,
                               microbatch_fn=microbatch_fn)
@@ -316,5 +359,5 @@ def load_imagenet_encoders(state: SSLTrainState, torch_state_dict: dict,
            if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
     for encoder in (state.model.context_encoder, state.model.target_encoder):
         encoder.load_state_dict(enc, strict=True)
-    state.optimizer = make_ssl_optimizer(state.model, config, state.stash)
+    state.optimizer = make_ssl_optimizer(state.model, config, state.stash, state.mesh)
     return state

@@ -18,7 +18,7 @@ from PIL import Image
 
 from msfwsi_tpu.train import checkpoint as JC
 from msfwsi_tpu.train import ssl as JS
-from msfwsi_tpu_torch import bench, ssl_train
+from msfwsi_tpu_torch import _cli, bench, ssl_train
 from msfwsi_tpu_torch.models.resnet import get_encoder, torch_style_init
 from msfwsi_tpu_torch.train import checkpoint as C
 from msfwsi_tpu_torch.train import ssl as S
@@ -70,7 +70,9 @@ def _recipe_commands():
 @pytest.mark.parametrize("script,argv", list(_recipe_commands()))
 def test_recipes_parse_verbatim(script, argv):
     args = ssl_train.build_parser().parse_args(argv)
-    assert ssl_train._unsupported(args) == [] and args.amp and args.multiprocessing_distributed
+    plan = _cli.dist_plan(args, argv, torch.device("cpu"))  # a group of one forms
+    assert (plan.world, plan.nprocs, plan.backend) == (1, 1, "gloo")
+    assert args.amp and args.multiprocessing_distributed
     assert args.data_name in ("bcss", "paip", "camelyon16") and args.device == "cuda"
 
 
@@ -80,12 +82,16 @@ def test_recipes_parse_verbatim(script, argv):
     ["--remat-stages", "1", "2"], ["--model-parallel", "2"], ["--world-size", "2"],
 ])
 def test_unsupported_values_raise_naming_the_queue_item(flags, tmp_path):
-    """The distributed flags raise, naming their queue item, before the run
-    makes its log dir; the memory path's flags (ported) run one step each
-    into the SSL config."""
+    """The distributed flags are ported: in one process ``--model-parallel
+    2`` fails as the JAX CLI does (the model axis does not divide a world of
+    1) and ``--world-size 2`` without ``--rank`` and ``--dist-url`` names
+    what it lacks, both before the run makes its log dir; the memory path's
+    flags run one step each into the SSL config."""
     argv = [*flags, "--synthetic", "2", "--device", "cpu", "--log-dir", str(tmp_path / "run")]
     if flags[0] in ("--model-parallel", "--world-size"):
-        with pytest.raises(ValueError, match=r"not ported yet, ROADMAP\.md queue 1, distributed"):
+        match = (r"bad --model-parallel 2: mesh 0x2 does not cover 1 devices"
+                 if flags[0] == "--model-parallel" else r"--world-size 2 needs --rank in \[0, 2\)")
+        with pytest.raises(ValueError, match=match):
             ssl_train.main(argv)
         assert not (tmp_path / "run").exists()
         return
@@ -291,7 +297,8 @@ def test_cli_trains_checkpoints_and_resumes_bit_identically(bcss, tmp_path):
 def test_cli_jax_resume_warns_and_packed_cache(bcss, jax_variables, tmp_path):
     """A JAX-written ``.pth.tar`` resumes weights only (with a warning);
     ``--packed-cache`` builds a pack and trains from it; the profiler,
-    TensorBoard and wandb flags are taken."""
+    TensorBoard and wandb flags are taken; ``--world-size 1 --rank 0`` runs
+    one process with no group."""
     _, variables = jax_variables
     ckpt = str(tmp_path / "checkpoint_0000.pth.tar")
     JC.save_torch_file(ckpt, JC.flax_msfwsi_to_torch(variables))
@@ -302,7 +309,10 @@ def test_cli_jax_resume_warns_and_packed_cache(bcss, jax_variables, tmp_path):
     log = (Path(out["log_dir"]) / "log.txt").read_text()
     assert "restores weights/BN only" in log and "streaming raw tiles from the packed cache" in log
     assert "flag --tf32 accepted for parity but inert" in log
-    assert "flag --world-size accepted for parity but inert" in log
+    # --world-size 1 without --multiprocessing-distributed: the reference's
+    # non-distributed path, no process group
+    assert out["process_group"] == {"backend": None, "world": 1, "rank": 0}
+    assert "process group" not in log
     assert "wandb unavailable" in log or "initialise wandb" in log
     assert len(list((tmp_path / "pack").glob("pack_*.npy"))) == 1
     assert (Path(out["log_dir"]) / "profile" / "trace.json").exists()

@@ -27,6 +27,7 @@ from msfwsi_tpu.train import evaluate as JEV
 from msfwsi_tpu.train import finetune as JFT
 from msfwsi_tpu.train.checkpoint import load_torch_file, torch_hooknet_to_flax
 from msfwsi_tpu_torch import ssl_finetune, ssl_train
+from msfwsi_tpu_torch._cli import dist_plan
 from msfwsi_tpu_torch.data import pipeline as P
 from msfwsi_tpu_torch.diag.datapath import smooth_tiles, write_bcss_dataset, write_bcss_masks
 from msfwsi_tpu_torch.models.hooknet import HookNet, build_hooknet
@@ -425,7 +426,9 @@ def _recipe_commands():
 @pytest.mark.parametrize("name,argv", list(_recipe_commands()))
 def test_recipes_parse_verbatim(name, argv):
     args = ssl_finetune.build_parser().parse_args(argv)
-    assert ssl_finetune._unsupported(args) == [] and args.amp and args.batch_size == 64
+    plan = dist_plan(args, argv, torch.device("cpu"))
+    assert plan is None or (plan.world, plan.nprocs) == (1, 1)
+    assert args.amp and args.batch_size == 64
     assert args.data_name in ("bcss", "paip") and args.device == "cuda"
     assert args.weights.endswith(".pth.tar") and "$" not in " ".join(argv)
 
@@ -433,11 +436,11 @@ def test_recipes_parse_verbatim(name, argv):
 def test_accum_steps_raises_naming_the_queue_item(tmp_path):
     """``--accum-steps`` is ported: a value that does not divide the batch
     raises before the run makes its log dir, as the JAX CLI exits; so does
-    ``--world-size`` > 1, naming its queue item."""
+    ``--world-size`` > 1 without the ``--rank`` of this process."""
     with pytest.raises(ValueError, match="--batch-size 64 must be divisible by --accum-steps 3"):
         ssl_finetune.main(["--accum-steps", "3", "--synthetic", "2", "--device", "cpu",
                            "--log-dir", str(tmp_path / "run")])
-    with pytest.raises(ValueError, match=r"not ported yet, ROADMAP\.md queue 1, distributed"):
+    with pytest.raises(ValueError, match=r"--world-size 2 needs --rank in \[0, 2\)"):
         ssl_finetune.main(["--world-size", "2", "--synthetic", "2", "--device", "cpu",
                            "--log-dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()

@@ -225,6 +225,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import msfwsi_tpu_torch.data.prepare, msfwsi_tpu_torch.bcss_prepare\n"
         "import msfwsi_tpu_torch.make_synthetic_slides, msfwsi_tpu_torch.export_serving\n"
         "import msfwsi_tpu_torch.train.serving\n"
+        "import msfwsi_tpu_torch.parallel, msfwsi_tpu_torch.parallel.mesh\n"
+        "import msfwsi_tpu_torch.parallel.tp\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

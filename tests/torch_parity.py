@@ -242,6 +242,32 @@ def load_jax_ssl_state(state, jstate) -> None:
                     st[mine].copy_(src[theirs][n].reshape(st[mine].shape))
 
 
+def jax_fused_factors(jstate) -> dict:
+    """``{port weight name: {"v_row", "v_col"}}`` of the fused Adafactor's
+    state in a JAX SSL train state (``v_row`` the input axis, ``v_col`` the
+    output axis, as the port keeps them), as numpy arrays. Each kernel's
+    port name comes from converting the whole state with every leaf filled
+    with its own index."""
+    from msfwsi_tpu_torch.train.checkpoint import jax_msfwsi_to_torch
+
+    tree = numpy_tree({"params": jstate.params, "batch_stats": jstate.batch_stats})
+    paths, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    ids = jax.tree_util.tree_unflatten(treedef, [np.full(np.shape(v), i, np.float32)
+                                                 for i, (_, v) in enumerate(paths)])
+    keys = [jax.tree_util.keystr(p) for p, _ in paths]
+    name_of = {keys[int(t.reshape(-1)[0])]: n for n, t in jax_msfwsi_to_torch(ids).items()
+               if not n.endswith("num_batches_tracked")}
+    out = {}
+    for kind, js in _opt_states(jstate.opt_state):
+        if kind != "fused_adafactor":
+            continue
+        for key in ("v_row", "v_col"):
+            for path, v in jax.tree_util.tree_flatten_with_path(_unmasked(getattr(js, key)))[0]:
+                name = name_of["['params']" + jax.tree_util.keystr(path)]
+                out.setdefault(name, {})[key] = np.asarray(v, np.float32)
+    return out
+
+
 def jax_ssl_state_from_port(jconfig, model):
     """A fresh JAX SSL train state for ``jconfig`` holding the port
     ``model``'s weights and BatchNorm statistics (through the JAX package's
