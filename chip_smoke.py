@@ -71,16 +71,30 @@ Phases, each logged with a timestamp:
    warm-up and 5 timed steps: finite loss, no kernel launch (the seg views
    draw no blur or sharpen), pairs/s (B*steps/seconds), ms/step and peak
    memory; then 3 steps traced by ``torch.profiler``;
-13. ft_cli: ``ssl_finetune.main`` in-process on the datapath's tiles, which
+13. packed: the packed decoder tail at full width (resnet18 HookNet, b64,
+   256 px views of (64,1024,1024,3) tiles): one train-mode forward and
+   backward against the unpacked decoder on the same model (lam 0.5), in
+   fp32 with TF32 off and under bf16 autocast, both logits, the loss,
+   every parameter's gradient and the running stats within
+   ``diag/packed_check.py``'s bounds (those the CPU tests measured);
+   ``dice_loss_packed`` against ``dice_loss`` on (64,256,256,6) fp32 and
+   bf16 logits, value and gradient; the fused fine-tuning step packed
+   (packed logits, packed Dice) and unpacked from the same weights, 2
+   warm-up steps each, then 8 windows of 10 steps in turns (unpacked,
+   packed, packed, unpacked, twice): the median ms/step, pairs/s and peak
+   memory beside the
+   nvidia-smi line, and 2 traced steps of each (busy share, top kernels);
+   no kernel launch on either path;
+14. ft_cli: ``ssl_finetune.main`` in-process on the datapath's tiles, which
    gain grey mask PNGs and a validation slide of 16 tiles: from phase
    "cli"'s ``checkpoint_0001.pth.tar``, the branch encoders equal the
    checkpoint's bit for bit before any step; then resnet18, amp, b16, 2
-   epochs of 2 steps, a validation each epoch: finite losses, scores in
+   epochs of 2 steps through the packed tail (the CLI's default), a validation each epoch: finite losses, scores in
    [0, 1], a ``best_ft_model.pth.tar`` equal to the model saved; a run with
    ``--val-views device``; host and device views on one model scoring
    alike; the CLI's pairs/s (from each epoch's first batch in hand, the
    fill apart) beside phase "finetune"'s;
-14. eval_cli: ``evaluate.main`` in-process on phase "ft_cli"'s
+15. eval_cli: ``evaluate.main`` in-process on phase "ft_cli"'s
    ``best_ft_model.pth.tar`` and validation slide, with its ``--amp``,
    ``--seg-size 256`` and chunk 128: every summary score within 1e-6 of a
    validation of the same model with fp32 views (the CLI's, as the JAX
@@ -88,43 +102,43 @@ Phases, each logged with a timestamp:
    fine-tuning's) gives the micro F1 of the best epoch that phase "ft_cli"
    recorded within 1e-6; then ``--val-views device`` (scores within 1e-3,
    the views differ by design); no kernel launch;
-15. predict: ``predict.main`` at full width (resnet18 HookNet, 1024 px
+16. predict: ``predict.main`` at full width (resnet18 HookNet, 1024 px
    tiles, chunk 128, ``--head both --stitch``) on the validation slide's
    tiles and a 4096 px raw slide PNG that they tile: per-tile and stitched
    palette PNGs, the target masks read back through the port's decoder
    and scored on the host equal to phase "eval_cli"'s counts exactly;
    tiles/s and peak memory; one 128-tile chunk traced by the profiler; no
    kernel launch;
-16. features: ``extract_features.main`` from phase "cli"'s
+17. features: ``extract_features.main`` from phase "cli"'s
    ``checkpoint_0001.pth.tar`` (resnet18, scale 4, chunk 32, ``--amp``) on
    both sides of fold 0: float16 features of the spec's shapes, the
    context features within bf16's 2e-2 (relative to 1 + |x|) of an fp32
    forward of the checkpoint's encoder, then ``linear_probe.main`` on them
    with finite scores; tiles/s and peak memory; no kernel launch;
-17. bench eval_e2e: the port bench in mode ``eval_e2e`` at 32 tiles a
+18. bench eval_e2e: the port bench in mode ``eval_e2e`` at 32 tiles a
    slide for a few slides; no kernel launch;
-18. prepare: ``make_synthetic_slides.main`` (3 BCSS region PNGs at 4096
+19. prepare: ``make_synthetic_slides.main`` (3 BCSS region PNGs at 4096
    px, institutions OL, A1, A2) and ``bcss_prepare.main`` at the recipe's
    ``-s 1024 --overlap 512``, on a machine without PIL: ``data.csv``'s
    columns, all four variants, every tile and mask decoded by the port's
    decoder, masks in 0-5 and none empty, unmasked pixels 0; tiles/s; then
    ``ssl_train.main`` on the prepared root (resnet18, b32, amp, fold 0, 1
    epoch of 2 steps): a finite loss, K1 4 launches a step;
-19. serving: ``export_serving.main`` on phase "ft_cli"'s best model at the
+20. serving: ``export_serving.main`` on phase "ft_cli"'s best model at the
    JAX tool's defaults (resnet18, chunk 128, 256 px, ``--amp``), the
    artifact loaded on the card and run on one 128-tile chunk of the
    validation slide's fp32 views: int32, equal to the eager model's argmax
    but where its two largest logits lie within bf16's 2e-2 (counted);
    tiles/s of the artifact and of the eager forward, peak memory; no
    kernel launch;
-20. encoders: resnet50 and resnext50_32x4d in fp32 (b2, 64 px views) on
+21. encoders: resnet50 and resnext50_32x4d in fp32 (b2, 64 px views) on
    the card against the CPU: with every residual branch active, eval-mode
    features and gradients parameter by parameter; a train step's loss and
    running stats (those against a float64 forward); the fused SSL step at resnet50's full width (b8, scale 4, bf16 amp, 2
    warm-up and 3 timed steps): finite loss, K1 4 launches a step, tile
    views/s, peak memory and its part held before the first step; one fused
    HookNet fine-tuning step at resnext50_32x4d (b16, 256 px), no launch;
-21. memory: the large-model memory path. resnet50 SSL at full width and
+22. memory: the large-model memory path. resnet50 SSL at full width and
    the recipe's b32 (scale 4, bf16 amp) as 2 microbatches, the fused
    outer-product Adafactor on bf16 fuser heads: 2 warm-up and 3 timed
    steps, finite loss, K1 8 launches a step (4 a microbatch), no dense head
@@ -138,7 +152,7 @@ Phases, each logged with a timestamp:
    step) and a resume whose model and optimizer states equal the
    checkpoint's; one fused HookNet fine-tuning step at resnet18 b64,
    accum 2, no launch;
-22. distributed, in two child processes with their own time limits: (a)
+23. distributed, in two child processes with their own time limits: (a)
    ``ssl_train.main`` with the recipe's ``--multiprocessing-distributed
    --world-size 1 --rank 0`` (resnet18, b32, scale 4, amp, 7 epochs of 1
    step): an NCCL group of one formed, K1 4 launches a step, the losses
@@ -153,8 +167,9 @@ Phases, each logged with a timestamp:
    tests' bounds (the fused Adafactor's ``v_row`` / ``v_col`` after the
    step too), and the SSL step under amp on bf16 views (K1 4 launches a
    rank; held to Adam's one-step bound);
-23. the kernels JSON line (each kernel's count on every path: 0 on the
-   fine-tuning, inference and serving paths, K1's on the SSL runs and on
+24. the kernels JSON line (each kernel's count on every path: 0 on the
+   fine-tuning paths, packed (``packed_check``, ``packed_step``) and not,
+   and the inference and serving paths, K1's on the SSL runs and on
    each rank of the distributed ones), then the result line.
 
 Any failed phase ends the run with a non-zero exit and no result line. A
@@ -170,6 +185,7 @@ import logging
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -177,7 +193,8 @@ import time
 
 # A hang must end in a traceback well before any outer time limit (1200 s):
 # the whole run, build and profile included, took 421.6-464.7 s on an H100
-# at 700 W; the margin is for a slower host or a card capped below 700 W.
+# at 700 W, 414.0-523.2 s with phase "packed"; the margin is for a slower
+# host or a card capped below 700 W.
 WATCHDOG_S = 720
 T0 = time.perf_counter()
 
@@ -381,37 +398,139 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_steps(step, steps):
-    """Trace ``steps`` calls of ``step`` with torch.profiler and log the
-    wall time per step, the device's busy share (the union of kernel
-    intervals over the traced wall time) and the CUDA time by kernel."""
+MMA_NAMES = ("conv", "xmma", "gemm", "gemv", "cutlass", "cudnn")
+LAYOUT_NAMES = ("nchwtonhwc", "nhwctonchw", "transpose")
+
+
+TRACE_WINDOW = "traced_steps"
+
+
+def _gaps(spans, lo, hi, min_us):
+    """The gaps of at least ``min_us`` in [lo, hi] between the union of
+    ``spans``."""
+    gaps, end = [], lo
+    for s, e in sorted(spans):
+        if s - end >= min_us:
+            gaps.append((end, s))
+        end = max(end, e)
+    if hi - end >= min_us:
+        gaps.append((end, hi))
+    return gaps
+
+
+def profile_steps(step, steps, top=25, warmup=0):
+    """Trace ``warmup`` + ``steps`` calls of ``step`` with torch.profiler
+    and read the last ``steps``: log the wall time per step, the device's
+    busy share (the union of kernel intervals over the traced wall time),
+    the CUDA time by kernel (the ``top`` kernels) and the host's side: aten
+    ops and CUDA runtime calls per step (count and host time by call) and
+    the device's idle gaps of 1 ms or more, each with the shortest host
+    event that spans it. Returns these numbers and the convolutions'
+    share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            metrics = step()
-        float(metrics["loss"])
-        wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+        for _ in range(warmup):
+            float(step()["loss"])
+        torch.cuda.synchronize()
+        with record_function(TRACE_WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                metrics = step()
+            float(metrics["loss"])
+            wall_s = time.perf_counter() - t0
+    events = prof.events()
+    window = next(e for e in events if e.name == TRACE_WINDOW and e.device_type == DeviceType.CPU)
+    lo, hi = window.time_range.start, window.time_range.end
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and lo <= e.time_range.start <= hi]
     if not kernels:
         raise AssertionError("the profiler recorded no device events")
     busy_s = _busy_us(kernels) * 1e-6
-    log("profile", f"{1e3 * wall_s / steps:.1f} ms/step over {steps} traced steps, device busy "
+    log("profile", f"{1e3 * wall_s / steps:.1f} ms/step over {steps} traced steps"
+        f"{f' after {warmup} traced warm-up' if warmup else ''}, device busy "
         f"{100 * busy_s / wall_s:.1f}% ({1e3 * busy_s / steps:.1f} ms/step of kernels)")
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
-    mma_names = ("conv", "xmma", "gemm", "gemv", "cutlass", "cudnn")
-    mma = sum(us for name, us in by_name.items() if any(k in name.lower() for k in mma_names))
+    mma = sum(us for name, us in by_name.items() if any(k in name.lower() for k in MMA_NAMES))
     log("profile", f"convolution and matmul kernels (cuDNN, cuBLAS): {mma / 1e3 / steps:.3f} "
         f"ms/step ({100 * mma / total:.2f}% of the kernels' time)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log("profile", f"{us / 1e3 / steps:9.3f} ms/step {100 * us / total:6.2f}%  {name[:110]}")
+    host = [e for e in events if e.device_type == DeviceType.CPU and e is not window
+            and lo <= e.time_range.start <= hi]
+    aten = sum(1 for e in host if e.name.startswith("aten::"))
+    runtime: dict[str, list] = {}
+    for e in host:
+        if e.name.startswith("cu"):
+            c = runtime.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    runtime = {k: (n / steps, us / 1e3 / steps) for k, (n, us) in runtime.items()}
+    log("profile", f"host: {aten / steps:.0f} aten ops/step (nested included); CUDA runtime "
+        "calls/step (count, host ms): " + ", ".join(f"{k} {n:.0f} {ms:.3f}" for k, (n, ms) in
+                                 sorted(runtime.items(), key=lambda kv: -kv[1][1])[:8]))
+    gaps = _gaps([(e.time_range.start, e.time_range.end) for e in kernels], lo, hi, 1000.0)
+    gap_ms = sum(b - a for a, b in gaps) / 1e3
+    log("profile", f"device idle gaps of 1 ms or more: {len(gaps) / steps:.1f}/step, "
+        f"{gap_ms / steps:.3f} ms/step; the largest, with the shortest host event over 80% of "
+        "each:")
+    spans = []
+    for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:5]:
+        over = [e for e in host if min(e.time_range.end, b) - max(e.time_range.start, a)
+                >= 0.8 * (b - a)]
+        e = min(over, key=lambda e: e.time_range.elapsed_us(), default=None)
+        what = "none (Python between ops)" if e is None else (
+            f"{e.name} ({e.time_range.elapsed_us() / 1e3:.3f} ms)")
+        spans.append(((b - a) / 1e3, what))
+        log("profile", f"{(b - a) / 1e3:9.3f} ms at +{(a - lo) / 1e3:.1f} ms: {what}")
+    return {"ms": 1e3 * wall_s / steps, "busy": busy_s / wall_s,
+            "kernel_ms": 1e3 * busy_s / steps, "mma_share": mma / total,
+            "aten_ops": aten / steps, "runtime": runtime, "gap_ms": gap_ms / steps,
+            "gaps": spans, "by_name_ms": {k: us / 1e3 / steps for k, us in by_name.items()}}
+
+
+def host_waits(step, reps=3):
+    """The host's side of ``step`` without the profiler: the operations
+    that make the host wait for the device in one step (each warns under
+    ``torch.cuda.set_sync_debug_mode("warn")``; counted by Python line),
+    and, from an idle queue, the time until ``step`` returns (the host's
+    time to launch it) against the time until the device is done (median
+    of ``reps``)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metrics = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    float(metrics["loss"])
+    waits: dict[str, int] = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            f = w.filename
+            where = f"{f[f.find('msfwsi_tpu_torch'):] if 'msfwsi_tpu_torch' in f else f}:{w.lineno}"
+            waits[where] = waits.get(where, 0) + 1
+    returned, done = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step()
+        returned.append(1e3 * (time.perf_counter() - t0))
+        float(metrics["loss"])
+        done.append(1e3 * (time.perf_counter() - t0))
+    return {"waits": waits, "return_ms": statistics.median(returned),
+            "done_ms": statistics.median(done)}
 
 
 def phase_slice(dev, batch=32, arch="resnet18", scale=4, warmup=2, steps=5, traced=3,
@@ -1003,6 +1122,174 @@ def phase_finetune(dev, batch=64, arch="resnet18", warmup=2, steps=5, traced=3):
             "pairs_per_s": pairs_per_s, "step_ms": 1e3 * dt / steps, "peak_bytes": peak}
 
 
+def _dice_on_card(dev, dtype, batch=64, size=256, classes=6):
+    """``dice_loss_packed`` on the space-to-depth of random logits against
+    ``dice_loss`` on the logits, fp32 sums either way: (the value's
+    relative difference, the largest gradient difference relative to the
+    largest gradient, the packed gradient's dtype)."""
+    import torch
+
+    from msfwsi_tpu_torch.ops import losses as L
+    from msfwsi_tpu_torch.ops import s2d
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    z = (2 * torch.randn((batch, size, size, classes), generator=gen, device=dev)).to(dtype)
+    target = torch.randint(0, classes, (batch, size, size), generator=gen, device=dev)
+    fg = list(range(1, classes))
+    z = z.requires_grad_(True)
+    want = L.dice_loss(z, target, classes=fg)
+    want.backward()
+    zp = s2d.space_to_depth(z.detach().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    zp = zp.contiguous().requires_grad_(True)
+    got = L.dice_loss_packed(zp, target, classes=fg)
+    got.backward()
+    dz = s2d.depth_to_space(zp.grad.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    scale = float(z.grad.float().abs().max())
+    return (abs(float(got) - float(want)) / abs(float(want)),
+            float((dz.float() - z.grad.float()).abs().max()) / scale, zp.grad.dtype)
+
+
+def phase_packed(dev, smi_line, ft_out, batch=64, arch="resnet18", warmup=2, steps=10):
+    """The packed decoder tail at full width (resnet18 HookNet, b64, 256 px
+    views from (64,1024,1024,3) uint8 tiles, 6 classes): its train-mode
+    forward and backward against the unpacked decoder on one model, in fp32
+    (TF32 off) and under bf16 autocast, within ``diag/packed_check.py``'s
+    bounds; ``dice_loss_packed`` against ``dice_loss``; then the fused
+    fine-tuning step packed (the CLI's default) and unpacked from the same
+    weights, timed in turns (unpacked, packed, packed, unpacked, twice);
+    the host's waits for the device and launch time of each; then each side
+    traced (three steps after a traced warm-up) in the order packed,
+    unpacked, unpacked, packed. Returns its numbers and kernel counts."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from msfwsi_tpu_torch.data.pipeline import AugConfig, make_seg_train_views
+    from msfwsi_tpu_torch.diag import packed_check as PC
+    from msfwsi_tpu_torch.models.hooknet import build_hooknet
+    from msfwsi_tpu_torch.train import finetune as FT
+
+    out = {"launches": {}}
+    base = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True)
+    aug = AugConfig(compute_dtype="bfloat16")
+    rng = np.random.default_rng(base.seed + 1)
+    src = 4 * aug.seg_size
+    imgs = torch.from_numpy(rng.integers(0, 256, (batch, src, src, 3), np.uint8)).to(dev)
+    masks = torch.from_numpy(rng.integers(0, base.num_classes, (batch, src, src),
+                                          np.uint8)).to(dev)
+    gen = torch.Generator(device=dev)
+    model = build_hooknet(torch.Generator().manual_seed(base.seed), device=dev, arch=arch,
+                          classes=base.num_classes)
+    (ctx, tgt), (cm, tm) = make_seg_train_views(imgs, masks, aug, gen.manual_seed(1))
+    views = {"context": ctx, "target": tgt, "context_mask": cm, "target_mask": tm}
+
+    _reset_counts()  # every kernel count to 0 just before the checks
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    for kind, amp in (("fp32", False), ("bf16", True)):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = amp
+        try:
+            b = {k: (v.float() if v.is_floating_point() else v) for k, v in views.items()}
+            d = PC.packed_against_unpacked(copy.deepcopy(model), b, amp)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+        ok = PC.within_bounds(d, PC.BOUNDS[kind])
+        log("packed", f"{kind}, train mode, {arch} b{batch} 256 px, packed against unpacked: "
+            f"loss {d['loss']:.3g} apart, logits {d['logits']:.3g} (largest "
+            f"{d['logit_max']:.3g}), gradients worst {d['grad_worst'][0]:.3g} "
+            f"({d['grad_worst'][1]}), all {d['grad_all']:.3g}, running stats "
+            f"{d['stats'][0]:.3g} ({d['stats'][1]}); bounds {PC.BOUNDS[kind]}: {ok}")
+        if not ok:
+            raise AssertionError(f"packed tail against unpacked, {kind}: {d}")
+        out[kind] = d
+    # bf16: both round one fp32 gradient; an ulp apart near the largest
+    # element is up to 2^-7 of it (measured 6.5e-3 on the CPU): two ulps
+    for kind, dtype, bound in (("fp32", torch.float32, 1e-4), ("bf16", torch.bfloat16, 2**-6)):
+        rel, grad, gdtype = _dice_on_card(dev, dtype)
+        log("packed", f"dice_loss_packed against dice_loss, {kind} logits (64,256,256,6): value "
+            f"{rel:.3g} apart (relative, bound 1e-5), gradient {grad:.3g} of the largest (bound "
+            f"{bound:g}), gradient dtype {gdtype}")
+        if not (rel <= 1e-5 and grad <= bound and gdtype == dtype):
+            raise AssertionError(f"dice_loss_packed on the card, {kind}: {rel}, {grad}, {gdtype}")
+    out["launches"]["packed_check"] = _read_counts()
+
+    states, step_fns = {}, {}
+    for name, packed in (("unpacked", False), ("packed", True)):
+        config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True, packed_tail=packed,
+                                   packed_logits=packed)
+        states[name] = FT.create_finetune_state(config, device=dev,
+                                                model=copy.deepcopy(model))
+        step_fns[name] = FT.make_fused_finetune_step(config, aug, device=dev)
+    del model
+    if not states["packed"].model.emits_packed_logits:
+        raise AssertionError("the packed state's model does not emit packed logits")
+
+    def run(name, i):
+        gen.manual_seed(100 + i)
+        return step_fns[name](states[name], imgs, masks, gen)
+
+    _reset_counts()  # every kernel count to 0 just before the timed path
+    for name in states:
+        for i in range(warmup):
+            loss = float(run(name, i)["loss"])
+            log("packed", f"{name} warm-up step {i + 1}: loss {loss:.6f}")
+    times = {name: [] for name in states}
+    peaks = {name: 0 for name in states}
+    for r, name in enumerate(("unpacked", "packed", "packed", "unpacked") * 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            metrics = run(name, 10 * r + i)
+        loss = float(metrics["loss"])  # synchronizes
+        dt = time.perf_counter() - t0
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite {name} fine-tuning loss {loss}")
+        times[name].append(1e3 * dt / steps)
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+        log("packed", f"window {r + 1} ({name}): {steps} steps in {dt:.3f} s, "
+            f"{1e3 * dt / steps:.1f} ms/step, {batch * steps / dt:.1f} pairs/s, loss {loss:.6f}")
+    out["launches"]["packed_step"] = _read_counts()
+    for name in states:
+        ms = statistics.median(times[name])
+        out[name] = {"ms": ms, "pairs_per_s": 1e3 * batch / ms, "peak_bytes": peaks[name]}
+        log("packed", f"{name} fused step {arch} b{batch}: median {ms:.2f} ms/step "
+            f"({', '.join(f'{t:.2f}' for t in times[name])} by window), "
+            f"{1e3 * batch / ms:.1f} pairs/s, peak memory {peaks[name] / 2**30:.2f} GiB, on "
+            f"{smi_line}")
+    ratio = out["unpacked"]["ms"] / out["packed"]["ms"]
+    log("packed", f"packed against unpacked: {ratio:.3f}x the median step rate (phase finetune's "
+        f"unpacked {ft_out['pairs_per_s']:.1f} pairs/s) on {smi_line}")
+    for name in states:
+        h = host_waits(lambda: run(name, 80))
+        out[name]["host"] = h
+        log("packed", f"{name}: host waits for the device in one step: "
+            f"{sum(h['waits'].values())} ({h['waits'] or 'none'}); from an idle queue the step "
+            f"returns after {h['return_ms']:.1f} ms, the device is done after "
+            f"{h['done_ms']:.1f} ms")
+    # three steps after a warm-up under the profiler, each side traced
+    # first once: the later trace of a side is the one kept
+    for name in ("packed", "unpacked", "unpacked", "packed"):
+        log("packed", f"three traced {name} steps after a traced warm-up step:")
+        trace = profile_steps(lambda: run(name, 90), 3, top=12, warmup=1)
+        by_name = trace.pop("by_name_ms")
+        out.setdefault("traces", []).append({"side": name, "ms": trace["ms"],
+                                             "busy": trace["busy"]})
+        mma = sorted(((ms, k) for k, ms in by_name.items()
+                      if any(m in k.lower() for m in MMA_NAMES + LAYOUT_NAMES)), reverse=True)
+        layout = sum(ms for k, ms in by_name.items() if any(m in k.lower() for m in LAYOUT_NAMES))
+        log("packed", f"{name}: convolution, matmul and layout kernels "
+            f"{sum(m for m, _ in mma):.3f} ms/step, of which layout transposes {layout:.3f}; "
+            "the largest:")
+        for ms, k in mma[:8]:
+            log("packed", f"{ms:9.3f} ms/step  {k[:120]}")
+        out[name]["trace"] = {**trace, "layout_ms": layout}
+    if any(v for c in out["launches"].values() for v in c.values()):
+        raise AssertionError(f"the packed paths launched kernels {out['launches']}, want none")
+    log("packed", f"kernel launches {out['launches']}")
+    return out
+
+
 def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
     """The fine-tuning CLI in-process on the datapath's tiles, from phase
     "cli"'s SSL checkpoint. Returns its numbers."""
@@ -1014,7 +1301,7 @@ def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
     from msfwsi_tpu_torch.data.loader import load_slide_arrays
     from msfwsi_tpu_torch.data.pipeline import AugConfig, make_seg_val_views_host
     from msfwsi_tpu_torch.diag import datapath as DP
-    from msfwsi_tpu_torch.models.hooknet import HookNet
+    from msfwsi_tpu_torch.models.hooknet import HookNet, unpacked
     from msfwsi_tpu_torch.train import checkpoint as C
     from msfwsi_tpu_torch.train import evaluate as EV
 
@@ -1064,6 +1351,11 @@ def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
     finally:
         C.save_best_ft_model = real_save
     out["launches"] = _read_counts()
+    packed = res["state"].model.emits_packed_logits
+    log("ft_cli", f"trained through the packed tail by default (the model emits packed "
+        f"logits, packed Dice): {packed}; validation ran it unpacked")
+    if not packed:
+        raise AssertionError("the fine-tuning CLI did not train through the packed tail")
     epochs = res["epochs"]
     scores = [{k: e[k] for k in ("val_f1", "val_iou", "val_acc")} for e in epochs]
     log("ft_cli", f"host views: epoch losses {[e['loss'] for e in epochs]}, train F1 "
@@ -1089,7 +1381,7 @@ def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
     out.update(pairs_per_s=rates, fill_s=fills, val_s=[e["val_seconds"] for e in epochs],
                best_dir=res["log_dir"], best_f1=res["best"]["f1"])
 
-    # one model, both kinds of evaluation views
+    # one model, both kinds of evaluation views, unpacked as the CLI validates
     model = res["state"].model
     aug = AugConfig(seg_size=256, compute_dtype="bfloat16")
     slide = load_slide_arrays(root, groups[0])
@@ -1098,7 +1390,9 @@ def phase_ft_cli(dev, root, tmp, ckpt_dir, finetune_pairs_per_s):
     for views in ("host", "device"):
         stats = EV.make_chunk_stats_for_views(model, len(classes), views, aug, amp=True)
         item = make_seg_val_views_host(*slide, aug) if views == "host" else slide
-        by_views[views] = EV.validate_slides(stats, [item], views, classes, device=dev).summary()
+        with unpacked(model):
+            by_views[views] = EV.validate_slides(stats, [item], views, classes,
+                                                 device=dev).summary()
     diff = max(abs(by_views["host"][k] - by_views["device"][k]) for k in by_views["host"])
     log("ft_cli", f"one model, host against device views: micro F1 "
         f"{by_views['host']['f1_micro']:.6f} / {by_views['device']['f1_micro']:.6f}, largest "
@@ -2499,6 +2793,7 @@ def main() -> int:
         cli_out = phase_cli(dev, root, tmp, slice_out["views_per_s"])
         phase_bench(dev)
         ft_out = phase_finetune(dev)
+        packed_out = phase_packed(dev, smi_line, ft_out)
         ft_cli_out = phase_ft_cli(dev, root, tmp, cli_out["ckpt_dir"], ft_out["pairs_per_s"])
         eval_out = phase_eval_cli(dev, root, tmp, ft_cli_out, smi_line)
         pred_out = phase_predict(dev, root, tmp, ft_cli_out, eval_out, smi_line)
@@ -2511,7 +2806,7 @@ def main() -> int:
         dist_out = phase_distributed(dev, root, tmp, slice_out["views_per_s"], smi_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    other_paths = {"eval_cli": eval_out["launches"],
+    other_paths = {**packed_out["launches"], "eval_cli": eval_out["launches"],
                    "eval_cli_device": eval_out["launches_device"],
                    "predict": pred_out["launches"], "features": feat_out["launches"],
                    "bench_eval_e2e": bench_eval["launches"], "prepare_cli": prep_out["launches"],

@@ -40,8 +40,10 @@ modes: BENCH_USE_AC (1), BENCH_REMAT_STAGES (e.g. ``1,2``),
 BENCH_INTER_OPT (adam, adafactor, fused_adafactor), BENCH_INTER_DTYPE
 (float32, bfloat16) and BENCH_ACCUM (also in mode ``hooknet``), each named
 in the metric as ``bench.py`` names it (``,ac``, ``,fused_adafactor``,
-``,interbf16``, ``,rs12``, ``,accum2``). BENCH_PACKED_TAIL=1 raises: the
-port computes the decoder unpacked.
+``,interbf16``, ``,rs12``, ``,accum2``). BENCH_PACKED_TAIL=1 runs modes
+``hooknet`` and ``infer`` with decoder blocks from BENCH_PACKED_FROM (3)
+in the space-to-depth domain, packed logits and the packed Dice in
+``hooknet`` only, as ``bench.py:211-218``; the metric gains ``,packed``.
 """
 
 from __future__ import annotations
@@ -131,11 +133,12 @@ def _ssl_mode(mode, arch, batch, env, dev, rng, img_size):
 
 def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
     """(run(i) -> metrics, metric name, items per step) of a HookNet mode."""
-    if env.get("BENCH_PACKED_TAIL", "0") == "1":
-        raise ValueError("BENCH_PACKED_TAIL=1: the port computes the decoder unpacked (the "
-                         "packed tail is a TPU layout, exact with the same weights)")
+    packed = env.get("BENCH_PACKED_TAIL", "0") == "1"
     accum = int(env.get("BENCH_ACCUM", "1")) if mode == "hooknet" else 1
-    config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True, accum_steps=accum)
+    config = FT.FinetuneConfig(arch=arch, batch_size=batch, amp=True, accum_steps=accum,
+                               packed_tail=packed, packed_logits=packed and mode == "hooknet",
+                               packed_from=int(env.get("BENCH_PACKED_FROM", "3")))
+    suffix = ",packed" if packed else ""
     state = FT.create_finetune_state(config, device=dev)
     if mode == "hooknet":
         aug_cfg = AugConfig(seg_size=seg_size, compute_dtype="bfloat16")
@@ -151,7 +154,7 @@ def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
             return step(state, imgs, masks, gen)
 
         metric = (f"hooknet_finetune_pairs_per_sec_per_chip[{arch},b{batch},{SEG_SIZE}px"
-                  + (f",accum{accum}" if accum > 1 else "") + "]")
+                  + (f",accum{accum}" if accum > 1 else "") + suffix + "]")
         return run, metric, batch, "pairs"
 
     C = config.num_fg  # foreground classes, as in the eval CLIs
@@ -170,7 +173,7 @@ def _hooknet_mode(mode, arch, batch, env, dev, rng, seg_size):
         acc = stats(ctx, tgt, masks, acc)
         return {"loss": acc[0, 0]}  # the sync reads the counts
 
-    metric = f"hooknet_inference_tiles_per_sec_per_chip[{arch},chunk{batch},{SEG_SIZE}px]"
+    metric = f"hooknet_inference_tiles_per_sec_per_chip[{arch},chunk{batch},{SEG_SIZE}px{suffix}]"
     return run, metric, batch, "tiles"
 
 

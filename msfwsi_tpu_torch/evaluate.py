@@ -9,8 +9,10 @@ per-class F1 / IoU / accuracy.
 Every flag of the JAX CLI's parser is here with its default, so the
 evaluation commands of ``scripts/paip.sh`` run verbatim with ``python -m
 msfwsi_tpu_torch.evaluate``; the reference's unused
-``--frac``/``--lam``/``--weight-name`` are logged as inert. ``--device``
-(``cuda`` by default) is the port's own.
+``--frac``/``--lam``/``--weight-name`` are logged as inert.
+``--packed-tail`` (off by default, as in the JAX CLI) runs decoder blocks
+3-4 in the space-to-depth domain, logits logical. ``--device`` (``cuda``
+by default) is the port's own.
 
 Over several ranks (the DDP flags, as ``ssl_train``, or ``torchrun``) each
 rank takes its slice of every ``--val-chunk`` chunk and the slide's counts
@@ -34,7 +36,7 @@ from ._cli import warn_noop_flags
 from .data import datasets as D
 from .data.loader import load_slide_arrays, synthetic_tile_library
 from .data.pipeline import AugConfig, make_seg_val_views_host
-from .models.hooknet import HookNet
+from .models.hooknet import HookNet, configure_tail
 from .ssl_finetune import CLASS_NAMES, FT_NOOP_FLAGS, check_norm_stats
 from .train import checkpoint as C
 from .train import evaluate as EV
@@ -89,14 +91,15 @@ def chunk_mesh(mesh, chunk: int, logger, what: str):
 def main_worker(args, dev, defaults, logger, mesh=None) -> dict:
     warn_noop_flags(logger, args, defaults, EVAL_NOOP_FLAGS)
     if args.packed_tail:
-        logger.info("=> flag --packed-tail accepted for parity but inert: the port computes the "
-                    "decoder unpacked (exact with the same weights)")
+        logger.info("=> --packed-tail: the model runs decoder blocks 3-4 in the space-to-depth "
+                    "domain (logical logits)")
     if args.data_name not in CLASS_NAMES:
         raise ValueError(f"unsupported --data-name {args.data_name!r} (bcss or paip)")
     class_names = CLASS_NAMES[args.data_name]
     logger.info(f"=> creating model '{args.arch}'")
     logger.info(f"=> loading pretrained weights {args.weights}")
     model = load_hooknet(args.weights, args.arch, len(class_names) + 1, dev, args, logger)
+    configure_tail(model, args.packed_tail)
     logger.info(f"=> loaded pretrained weights {args.weights}")
     aug_cfg = eval_aug_config(args)
 
@@ -186,8 +189,8 @@ def build_parser():
 
     parser.add_argument("--synthetic", type=int, default=0)
     parser.add_argument("--packed-tail", action=argparse.BooleanOptionalAction, default=False,
-                        help="accepted for parity; the port computes the decoder unpacked "
-                        "(exact, the same weights)")
+                        help="run decoder blocks 3-4 in the space-to-depth domain (exact, the "
+                        "same weights; logical logits)")
     parser.add_argument("--val-chunk", type=int, default=128,
                         help="tiles per device pass during validation (reference: 128)")
     parser.add_argument("--val-views", choices=("host", "device"), default="host",

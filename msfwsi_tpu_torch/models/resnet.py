@@ -69,23 +69,31 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def batch_stats(self, xf, dims):
+        """Train mode's ``(mean, biased var)`` of ``xf`` (fp32 or wider)
+        over ``dims``, as the mean and the mean of squares, averaged over
+        ``group`` when set; the running stats updated under
+        ``update_stats``. :meth:`forward` and the packed BatchNorm
+        (``models/hooknet.py``) share it."""
+        mean = xf.mean(dim=dims)
+        if self.group is None:
+            var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+        else:
+            mean, mean2 = all_reduce_mean(torch.stack([mean, xf.square().mean(dim=dims)]),
+                                          self.group)
+            var = (mean2 - mean.square()).clamp_min(0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, var
+
     def forward(self, x):
         shape = [1, -1] + [1] * (x.dim() - 2)
         if self.training:
-            dims = [0, *range(2, x.dim())]
             xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp64 stays fp64
-            mean = xf.mean(dim=dims)
-            if self.group is None:
-                var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
-            else:
-                mean, mean2 = all_reduce_mean(torch.stack([mean, xf.square().mean(dim=dims)]),
-                                              self.group)
-                var = (mean2 - mean.square()).clamp_min(0.0)
-            if self.update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            mean, var = self.batch_stats(xf, [0, *range(2, x.dim())])
         else:
             mean, var = self.running_mean, self.running_var
         dt = x.dtype

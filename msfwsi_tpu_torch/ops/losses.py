@@ -9,10 +9,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..parallel.mesh import all_reduce_sum
 
-__all__ = ["cosine_similarity", "simsiam_loss", "msfwsi_loss", "dice_loss"]
+__all__ = ["cosine_similarity", "simsiam_loss", "msfwsi_loss", "dice_loss", "dice_loss_packed"]
 
 
 def cosine_similarity(a, b, eps: float = 1e-8):
@@ -81,3 +82,101 @@ def dice_loss(logits, target, classes: Sequence[int] | None = None, smooth: floa
     if classes is not None:
         loss = loss[torch.as_tensor(list(classes), device=loss.device)]
     return loss.mean()
+
+
+def _pack_target(target):
+    """A logical (N, H, W) class map -> (N, H/2, W/2, 4), sub-position-major
+    as the packed logits' groups (``ops/s2d.py``)."""
+    N, H, W = target.shape
+    return target.reshape(N, H // 2, 2, W // 2, 2).permute(0, 1, 3, 2, 4).reshape(
+        N, H // 2, W // 2, 4)
+
+
+def _packed_softmax(z, num_classes: int):
+    N, h, w, _ = z.shape
+    return torch.softmax(z.float().view(N, h, w, 4, num_classes), dim=-1)
+
+
+def _packed_onehot(t, num_classes: int):
+    return t[..., None] == torch.arange(num_classes, device=t.device)
+
+
+def _class_weights(num_classes: int, classes, device):
+    """(C,) weights of the mean over ``classes`` (all when None), copied to
+    ``device`` without a wait for the device's queue."""
+    cls = range(num_classes) if classes is None else classes
+    w = torch.zeros(num_classes)
+    w[list(cls)] = 1.0 / len(cls)
+    return w.to(device, non_blocking=True)
+
+
+class _DicePacked(torch.autograd.Function):
+    """The JAX package's custom VJP of the packed Dice loss: the forward
+    saves the logits (in their own dtype), the packed target, the sample
+    mask, the three (C,) sums and the classes' weights; the backward
+    recomputes the softmax in fp32 and returns ``dz`` in the logits' dtype,
+    so no fp32 copy of the logits lives across the backward."""
+
+    @staticmethod
+    def forward(ctx, z, t, m, classes, smooth, eps, group):
+        C = z.shape[-1] // 4
+        probs = _packed_softmax(z, C)
+        onehot = _packed_onehot(t, C)
+        mm = m.view(-1, 1, 1, 1, 1)
+        dims = (0, 1, 2, 3)
+        sums = torch.stack([(probs * onehot * mm).sum(dim=dims), (probs * mm).sum(dim=dims),
+                            (onehot * mm).sum(dim=dims)])
+        del probs
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+        inter, psum, osum = sums
+        sel = _class_weights(C, classes, z.device)
+        ctx.save_for_backward(z, t, m, inter, psum, osum, sel)
+        ctx.smooth, ctx.eps, ctx.group = smooth, eps, group
+        card = psum + osum
+        score = (2.0 * inter + smooth) / (card + smooth).clamp_min(eps)
+        return ((1.0 - score) * (osum > 0).float() * sel).sum()
+
+    @staticmethod
+    def backward(ctx, gL):
+        z, t, m, inter, psum, osum, sel = ctx.saved_tensors
+        C = z.shape[-1] // 4
+        smooth, eps = ctx.smooth, ctx.eps
+        card = psum + osum
+        denom = (card + smooth).clamp_min(eps)
+        present = (osum > 0).float()
+        active = (card + smooth >= eps).float()  # the max()'s pullback
+        w_c = gL.float() * sel * present  # d(mean over classes) / d(loss_c)
+        # loss_c = 1 - (2I + s)/denom: dI = -2/denom, dcard = (2I + s)/denom^2
+        gI = w_c * (-2.0) / denom
+        gP = w_c * (2.0 * inter + smooth) / denom.square() * active
+        if ctx.group is not None:
+            # dice_loss's differentiable all-reduce of the sums sums every
+            # rank's (equal) cotangent back onto each rank's local sums; the
+            # gradient mean over the group then divides by its size
+            scale = float(dist.get_world_size(ctx.group))
+            gI, gP = gI * scale, gP * scale
+        probs = _packed_softmax(z, C)
+        g = (gI * _packed_onehot(t, C) + gP) * m.view(-1, 1, 1, 1, 1)
+        dz = probs * (g - (probs * g).sum(dim=-1, keepdim=True))
+        return dz.view(z.shape).to(z.dtype), None, None, None, None, None, None
+
+
+def dice_loss_packed(logits_packed, target, classes: Sequence[int] | None = None,
+                     smooth: float = 0.0, eps: float = 1e-7, sample_mask=None, group=None):
+    """:func:`dice_loss` on space-to-depth packed NHWC logits (N, H/2, W/2,
+    4*C) (the packed head's output, sub-position-major) against the logical
+    (N, H, W) ``target``: the softmax within each sub-position's class
+    group, the per-class sums over batch, packed pixels and sub-positions
+    (the logical pixel set), so it equals ``dice_loss`` on the logical
+    logits up to rounding. A custom backward (the JAX package's VJP):
+    ``dL/dp = m*(gI*y + gP)`` per class, ``dz = p*(g - sum_k p_k g_k)``.
+    ``classes``, ``smooth``, ``eps``, ``sample_mask`` and ``group`` as in
+    :func:`dice_loss`; with ``group`` the sums are all-reduced in the
+    forward and the gradient is scaled as ``dice_loss``'s."""
+    N = logits_packed.shape[0]
+    t = _pack_target(target)
+    m = (torch.ones((N,), device=logits_packed.device) if sample_mask is None
+         else sample_mask.float())
+    cls = None if classes is None else tuple(int(c) for c in classes)
+    return _DicePacked.apply(logits_packed, t, m, cls, float(smooth), float(eps), group)

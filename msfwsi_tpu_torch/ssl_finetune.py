@@ -8,10 +8,13 @@ Every flag of the JAX CLI's parser is here with its default, so the
 fine-tuning commands of ``scripts/{bcss,paip,c16}.sh`` run verbatim with
 ``python -m msfwsi_tpu_torch.ssl_finetune`` in place of ``python
 tools/ssl_finetune.py``. Flags kept only for parity with the reference's
-runtime are logged as inert; ``--packed-tail`` (a TPU layout of the
-decoder, exact with the same weights) is accepted and the decoder is
-computed unpacked. ``--device`` (``cuda`` by default) is the port's own:
-without a card the CLI raises unless given ``--device cpu``.
+runtime are logged as inert. ``--packed-tail`` (on by default, as in the
+JAX CLI) trains with the decoder tail in the space-to-depth domain and
+packed logits (the packed Dice loss), and validates the same module
+unpacked; ``--no-packed-tail`` trains unpacked. The weights are the same
+modules either way, so a ``best_ft_model.pth.tar`` of one loads into the
+other. ``--device`` (``cuda`` by default) is the port's own: without a
+card the CLI raises unless given ``--device cpu``.
 
 Distributed runs take the SSL CLI's flags (``ssl_train.py``: the
 reference's ``--multiprocessing-distributed --world-size --rank
@@ -47,6 +50,7 @@ from ._cli import group_info, warn_noop_flags
 from .data import datasets as D
 from .data.loader import TileBatchLoader, load_slide_arrays, synthetic_tile_library
 from .data.pipeline import AugConfig, make_seg_val_views_host
+from .models.hooknet import unpacked
 from .ops import metrics as M
 from .parallel.mesh import Mesh, gather_rows
 from .ssl_train import NOOP_FLAGS, _trackers
@@ -181,9 +185,9 @@ def _drain(pending, losses, stats, mesh: Mesh | None = None) -> None:
 def _finetune(args, dev, defaults, logger, mesh: Mesh) -> dict:
     warn_noop_flags(logger, args, defaults, FT_NOOP_FLAGS)
     if args.packed_tail:
-        logger.info("=> flag --packed-tail accepted for parity but inert: the port computes the "
-                    "decoder unpacked (the packed tail is a TPU layout, exact with the same "
-                    "weights)")
+        logger.info("=> --packed-tail: training with decoder blocks 3-4 in the space-to-depth "
+                    "domain and packed logits (packed Dice); validation runs the same model "
+                    "unpacked")
     multi = mesh.data > 1
     if args.data_name not in CLASS_NAMES:
         raise ValueError(f"unsupported --data-name {args.data_name!r} (bcss or paip)")
@@ -192,7 +196,8 @@ def _finetune(args, dev, defaults, logger, mesh: Mesh) -> dict:
     config = FT.FinetuneConfig(
         arch=args.arch, class_names=tuple(class_names), batch_size=args.batch_size,
         lr=args.lr, lam=args.lam, amp=args.amp, seed=args.seed if args.seed is not None else 0,
-        accum_steps=args.accum_steps,
+        accum_steps=args.accum_steps, packed_tail=args.packed_tail,
+        packed_logits=args.packed_tail,
     )
     logger.info(f"=> creating model '{args.arch}' ({config.num_classes} classes incl. bg)")
     logger.info(f"=> scale lr from {args.lr:.4f} to {config.init_lr:.4f}")
@@ -253,8 +258,11 @@ def _finetune(args, dev, defaults, logger, mesh: Mesh) -> dict:
 
     def run_validation():
         slides = host_view_slides() if args.val_views == "host" else val_slides()
-        return EV.validate_slides(chunk_stats, slides, args.val_views, class_names,
-                                  chunk=args.val_chunk, device=dev, mesh=val_mesh).summary()
+        # eval mode has no batch statistics or backward for the packed
+        # layout to save: validate unpacked, as the JAX CLI does
+        with unpacked(state.model):
+            return EV.validate_slides(chunk_stats, slides, args.val_views, class_names,
+                                      chunk=args.val_chunk, device=dev, mesh=val_mesh).summary()
 
     recorders = {k: BestRecorder("max") for k in ("f1", "iou", "acc")}
     raw_recorders = {m: {c: BestRecorder("max") for c in class_names}
@@ -379,8 +387,8 @@ def build_parser():
 
     # Extras of the JAX CLI (not in the reference)
     parser.add_argument("--packed-tail", action=argparse.BooleanOptionalAction, default=True,
-                        help="accepted for parity; the port computes the decoder unpacked "
-                        "(exact, the same weights)")
+                        help="train with decoder blocks 3-4 in the space-to-depth domain and "
+                        "packed logits (exact, the same weights); validation runs unpacked")
     parser.add_argument("--accum-steps", type=int, default=1,
                         help="gradient accumulation: sequential microbatches a step, one Adam "
                         "update on their mean gradient; must divide --batch-size")

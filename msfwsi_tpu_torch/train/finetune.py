@@ -18,6 +18,12 @@ interleaved microbatches of ``train/ssl.py::slice_microbatch`` and one
 Adam update on their mean gradient, the Dice loss averaged per microbatch;
 ``use_ac`` checkpoints the branch encoders' blocks. Nothing is compiled.
 
+``packed_tail`` trains with the decoder tail in the space-to-depth domain
+(``models/hooknet.py``); with ``packed_logits`` too, the model emits
+packed logits, the loss is ``dice_loss_packed`` and the train metrics take
+the argmax within each sub-position's class group, as the JAX package's
+step does.
+
 Distributed (a state with a ``mesh``, data parallelism only, as the JAX
 package's mesh step): each rank trains on its contiguous rows of the global
 batch, BatchNorm and the Dice sums reduce over the data group, and the
@@ -34,9 +40,9 @@ import torch
 
 from .. import resolve_device
 from ..data.pipeline import AugConfig, make_seg_train_views, sample_seg_train_views
-from ..models.hooknet import HookNet, build_hooknet
+from ..models.hooknet import PACKED_FROM, HookNet, build_hooknet, configure_tail
 from ..models.resnet import sync_batchnorm
-from ..ops.losses import dice_loss
+from ..ops.losses import dice_loss, dice_loss_packed
 from ..ops.metrics import get_stats
 from ..parallel.mesh import Mesh, average_gradients, rank_draws
 from .ssl import accumulate, slice_microbatch
@@ -64,7 +70,10 @@ class FinetuneConfig:
     """Fine-tuning hyperparameters; defaults mirror the reference's flags.
     ``accum_steps``: sequential microbatches a step (see
     ``train/ssl.py::SSLConfig``); ``use_ac``: per-block activation
-    checkpointing of both branch encoders."""
+    checkpointing of both branch encoders; ``packed_tail``,
+    ``packed_from``, ``packed_logits``: the decoder tail of the model the
+    state trains (``models/hooknet.py``; packed logits only with the
+    packed tail)."""
 
     arch: str = "resnet18"
     class_names: Sequence[str] = tuple(BCSS_CLASSES)
@@ -75,6 +84,9 @@ class FinetuneConfig:
     seed: int = 3407
     accum_steps: int = 1
     use_ac: bool = False
+    packed_tail: bool = False
+    packed_from: int = PACKED_FROM
+    packed_logits: bool = False
 
     def __post_init__(self):
         if self.accum_steps < 1:
@@ -109,14 +121,15 @@ def make_finetune_optimizer(model: HookNet, config: FinetuneConfig) -> torch.opt
 def create_finetune_state(config: FinetuneConfig, device="cuda", model: HookNet | None = None,
                           mesh: Mesh | None = None) -> SegTrainState:
     """HookNet (initialized from ``config.seed`` unless given) and Adam on
-    ``device``; under a ``mesh`` its BatchNorm reduces over the data
-    group."""
+    ``device``, the model's decoder tail set from ``config``; under a
+    ``mesh`` its BatchNorm reduces over the data group."""
     dev = resolve_device(device)
     if model is None:
         gen = torch.Generator().manual_seed(config.seed)
         model = build_hooknet(gen, device=dev, arch=config.arch, classes=config.num_classes,
                               remat=config.use_ac)
-    model = model.to(dev)
+    model = configure_tail(model.to(dev), config.packed_tail, config.packed_from,
+                           config.packed_tail and config.packed_logits)
     if mesh is not None:
         sync_batchnorm(model, mesh.data_group)
     return SegTrainState(model=model, optimizer=make_finetune_optimizer(model, config), mesh=mesh)
@@ -147,18 +160,20 @@ def finetune_loss_fn(model: HookNet, batch: dict, lam: float, num_fg: int, amp: 
     context head gets no gradient. Adam then skips its ``None`` gradient
     where optax applies a zero update; the weights are the same either way,
     since a parameter whose gradient has always been 0 has zero moments.
-    ``group``: the data-parallel group the Dice sums reduce over."""
+    ``group``: the data-parallel group the Dice sums reduce over. A model
+    that emits packed logits takes ``dice_loss_packed``."""
     classes = list(range(1, num_fg + 1))
     valid = batch.get("valid")  # (N,) mask of a wrap-padded trailing batch
     device_type = batch["context"].device.type
     with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
         ctx_logits, tgt_logits = model(batch["context"], batch["target"])
+    dice = dice_loss_packed if model.emits_packed_logits else dice_loss
     loss = 0.0
     if (1.0 - lam) != 0.0:
-        loss = loss + (1.0 - lam) * dice_loss(ctx_logits, batch["context_mask"], classes=classes,
+        loss = loss + (1.0 - lam) * dice(ctx_logits, batch["context_mask"], classes=classes,
                                               sample_mask=valid, group=group)
     if lam != 0.0:
-        loss = loss + lam * dice_loss(tgt_logits, batch["target_mask"], classes=classes,
+        loss = loss + lam * dice(tgt_logits, batch["target_mask"], classes=classes,
                                       sample_mask=valid, group=group)
     return loss, tgt_logits
 
@@ -197,7 +212,14 @@ def finetune_train_step(state: SegTrainState, batch: dict, lam: float, num_fg: i
         logits = [lg for _, lg in parts]
         tgt_logits = torch.stack(logits, dim=1).reshape(-1, *logits[0].shape[1:])
     with torch.no_grad():
-        pred = tgt_logits.float().argmax(dim=-1)
+        if model.emits_packed_logits:
+            # argmax within each sub-position's class group, then the
+            # integer predictions' depth-to-space
+            N, h, w, C4 = tgt_logits.shape
+            pred = tgt_logits.float().view(N, h, w, 4, C4 // 4).argmax(dim=-1)
+            pred = pred.view(N, h, w, 2, 2).permute(0, 1, 3, 2, 4).reshape(N, 2 * h, 2 * w)
+        else:
+            pred = tgt_logits.float().argmax(dim=-1)
         tp, fp, fn, tn = get_stats(pred - 1, batch["target_mask"].long() - 1, num_fg,
                                    ignore_index=-1)
     metrics = {"loss": loss.detach(), "tp": tp, "fp": fp, "fn": fn, "tn": tn}

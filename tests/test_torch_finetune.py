@@ -465,8 +465,8 @@ def test_synthetic_run_writes_best_model(tmp_path):
     best = Path(out["log_dir"]) / "best_ft_model.pth.tar"
     saved = C.load_torch_file(str(best))
     assert out["epochs"][0]["is_best"] and len(saved) == len(out["state"].model.state_dict())
-    assert "packed-tail accepted for parity but inert" in (Path(out["log_dir"]) / "log.txt"
-                                                           ).read_text()
+    assert "--packed-tail: training with decoder blocks 3-4 in the space-to-depth domain" in (
+        Path(out["log_dir"]) / "log.txt").read_text()
 
 
 @pytest.fixture(scope="module")

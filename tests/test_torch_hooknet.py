@@ -134,13 +134,14 @@ def _jax_forward(variables, x1, x2, train, dtype=jnp.float32, packed_tail=False)
 def test_hooknet_forward_matches_jax(hooknet, views, train, packed_tail):
     """Both logits and every running stat, fp32, against JAX's unpacked
     decoder and its space-to-depth tail (``packed_tail=True,
-    packed_logits=False``) on the same variables. Logits within 1e-4 in
+    packed_logits=False``) on the same variables, the port's decoder
+    unpacked and packed in turn. Logits within 1e-4 in
     eval mode, 5e-3 in train mode (measured 1.0e-4); stats within 1e-5 in
     the encoders (measured 6.1e-6) and 1e-4 in the decoders (measured, with
     the eval logits, 5.4e-6)."""
     model, variables = hooknet
     (jctx, jtgt), mutated = _jax_forward(variables, *views, train, packed_tail=packed_tail)
-    port = HookNet(arch=ARCH, classes=CLASSES)
+    port = HookNet(arch=ARCH, classes=CLASSES, packed_tail=packed_tail)
     port.load_state_dict(model.state_dict())
     port.train(train)
     ctx, tgt = port(t(views[0]), t(views[1]))

@@ -227,6 +227,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import msfwsi_tpu_torch.train.serving\n"
         "import msfwsi_tpu_torch.parallel, msfwsi_tpu_torch.parallel.mesh\n"
         "import msfwsi_tpu_torch.parallel.tp\n"
+        "import msfwsi_tpu_torch.ops.s2d, msfwsi_tpu_torch.diag.packed_check\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

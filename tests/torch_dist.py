@@ -176,10 +176,12 @@ def fused_ssl_steps(rank: int, config_kwargs: dict, aug_kwargs: dict, tiles: np.
 
 
 def finetune_step(rank: int, config_kwargs: dict, seg_size: int, imgs, masks, valid,
-                  view_params, world: int):
+                  view_params, world: int, keep_grads: bool = False):
     """One fused fine-tuning step on this rank's rows of the global batch
     (``valid`` its wrap-pad mask), the view parameters given for the
-    global batch. Returns the metrics and the state dict."""
+    global batch. Returns the metrics and the state dict, and with
+    ``keep_grads`` the gradients the optimizer was given (after the mean
+    over the ranks), by parameter name."""
     from msfwsi_tpu_torch.data.pipeline import AugConfig
     from msfwsi_tpu_torch.models.hooknet import build_hooknet
     from msfwsi_tpu_torch.parallel.mesh import make_mesh
@@ -192,13 +194,24 @@ def finetune_step(rank: int, config_kwargs: dict, seg_size: int, imgs, masks, va
     state = FT.create_finetune_state(config, device="cpu", model=model, mesh=mesh)
     step = FT.make_fused_finetune_step(config, AugConfig(seg_size=seg_size), device="cpu",
                                        mesh=mesh)
+    grads = {}
+    if keep_grads:
+        optimizer_step = state.optimizer.step
+
+        def step_keeping_grads(*a, **kw):
+            grads.update((n, p.grad.detach().clone())
+                         for n, p in state.model.named_parameters() if p.grad is not None)
+            return optimizer_step(*a, **kw)
+
+        state.optimizer.step = step_keeping_grads
     n = imgs.shape[0] // world
     sl = slice(rank * n, (rank + 1) * n)
     m = step(state, torch.from_numpy(imgs[sl]), torch.from_numpy(masks[sl]),
              view_params=view_params, valid=torch.from_numpy(valid[sl]))
     sd = state.model.state_dict()
     return {"metrics": {k: v.clone() for k, v in m.items()},
-            "state": sd if rank == 0 else None, "digests": digests(sd)}
+            "state": sd if rank == 0 else None, "digests": digests(sd),
+            "grads": grads if rank == 0 else None}
 
 
 def cli(rank: int, module: str, argv: list, keys=("log_dir", "process_group", "start_epoch",
